@@ -1,0 +1,99 @@
+"""Import hygiene and device policy of the PyTorch port.
+
+Run in subprocesses, because tests/conftest.py imports jax:
+importing every module of ``video_classification_tpu_torch`` pulls in
+neither jax, flax nor the JAX package; ``chip_smoke.py`` refuses to run
+without CUDA, and outside a checkout. In-process: entry points default to
+CUDA and raise when there is none.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "video_classification_tpu_torch"
+FORBIDDEN = ("jax", "flax", "video_classification_tpu")
+
+
+def _run(code_or_args, cwd=ROOT):
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import video_classification_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PORT.rglob("*.py")] + [Path("chip_smoke.py")]))
+def test_no_jax_imports_in_source(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+def test_entry_points_raise_without_cuda():
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.engine import Predictor
+    from video_classification_tpu_torch.utils.cuda import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(get_cfg())
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda_and_outside_a_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run(["chip_smoke.py"])
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_cpu_kernels_never_build(tmp_path, monkeypatch):
+    """CPU tensors take the plain versions: no nvcc is needed or called."""
+    from video_classification_tpu_torch.ops.component_extents import component_extents
+    from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.utils import cuda
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call tried to build a kernel")
+
+    monkeypatch.setattr(cuda, "build", refuse)
+    im = torch.rand((1, 8, 9, 3))
+    u, v, mx = flow_level(im, im, torch.zeros((1, 8, 9)), torch.zeros((1, 8, 9)),
+                          1, 2, 0.012, 1.8, 1e-6, 8, 0.0)
+    assert u.shape == (1, 8, 9) and mx.shape == (1,)
+    assert len(component_extents(torch.ones((1, 4, 4), dtype=torch.bool))) == 4

@@ -1,0 +1,105 @@
+// PyTorch bindings of the hand-written CUDA kernels of this directory:
+// flow_level (flow_level.cu) and component_extents (component_extents.cu).
+// Built together as one extension by utils/cuda.py::build; the Python
+// wrappers in ops/ call these on CUDA tensors only.
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <cuda_runtime.h>
+#include <torch/extension.h>
+
+#include <cstdint>
+#include <tuple>
+#include <vector>
+
+cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
+                              float* v, float* mx, float* fields,
+                              float* warped, float* red, int B, int H, int W,
+                              int C, int n_outer, int n_sor, float alpha,
+                              float omega, float one_m_omega, float eps,
+                              int r_cap, float outer_tol, cudaStream_t st);
+int flow_level_num_fields();
+cudaError_t component_extents_launch(const uint8_t* masks, int32_t* mnr,
+                                     int32_t* mxr, int32_t* mnc, int32_t* mxc,
+                                     int B, int H, int W, int max_iters,
+                                     cudaStream_t st);
+
+namespace {
+
+constexpr int64_t kMaxSmem = 232448;  // dynamic shared memory of one H100 block
+
+void check_launch(cudaError_t err, const char* what) {
+  TORCH_CHECK(err == cudaSuccess, what, ": ", cudaGetErrorString(err));
+}
+
+torch::Tensor cuda_f32(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.scalar_type() == torch::kFloat32, name,
+              " must be a float32 CUDA tensor");
+  return t.contiguous();
+}
+
+// (u, v, mx): see ops/flow_level.py::flow_level.
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
+    const torch::Tensor& im1_in, const torch::Tensor& im2_in,
+    const torch::Tensor& u, const torch::Tensor& v, int64_t n_outer,
+    int64_t n_sor, double alpha, double omega, double eps, int64_t r_cap,
+    double outer_tol) {
+  const auto im1 = cuda_f32(im1_in, "im1"), im2 = cuda_f32(im2_in, "im2");
+  TORCH_CHECK(im1.dim() == 4 && im2.sizes() == im1.sizes(),
+              "im1, im2 must be (B, H, W, C) alike");
+  const int64_t B = im1.size(0), H = im1.size(1), W = im1.size(2),
+                C = im1.size(3);
+  TORCH_CHECK(u.sizes() == v.sizes() && u.dim() == 3 && u.size(0) == B &&
+                  u.size(1) == H && u.size(2) == W,
+              "u, v must be (B, H, W)");
+  TORCH_CHECK(B * H * W * C < (int64_t{1} << 31), "B*H*W*C must be < 2**31");
+  const c10::cuda::CUDAGuard guard(im1.device());
+  auto u_out = cuda_f32(u, "u").clone();
+  auto v_out = cuda_f32(v, "v").clone();
+  const auto f32 = im1.options();
+  auto mx = torch::zeros({B}, f32);
+  auto fields = torch::empty({flow_level_num_fields(), B, H, W}, f32);
+  auto warped = torch::empty_like(im1);
+  auto red = torch::zeros({2 * n_outer + 1, B}, f32);
+  check_launch(
+      flow_level_launch(
+          im1.data_ptr<float>(), im2.data_ptr<float>(), u_out.data_ptr<float>(),
+          v_out.data_ptr<float>(), mx.data_ptr<float>(),
+          fields.data_ptr<float>(), warped.data_ptr<float>(),
+          red.data_ptr<float>(), B, H, W, C, n_outer, n_sor, (float)alpha,
+          (float)omega, (float)(1.0 - omega), (float)eps, r_cap,
+          (float)outer_tol, at::cuda::getCurrentCUDAStream()),
+      "flow_level");
+  return {u_out, v_out, mx};
+}
+
+// (min_row, max_row, min_col, max_col): see
+// ops/component_extents.py::component_extents.
+std::vector<torch::Tensor> component_extents(const torch::Tensor& masks,
+                                             int64_t max_iters) {
+  TORCH_CHECK(masks.is_cuda() && masks.dim() == 3,
+              "masks must be a (B, H, W) CUDA tensor");
+  const int64_t B = masks.size(0), H = masks.size(1), W = masks.size(2);
+  TORCH_CHECK(H <= 255 && W <= 255 && 8 * H * W <= kMaxSmem,
+              "component_extents: ", H, "x", W,
+              " masks exceed the byte-coded shared-memory propagation");
+  const c10::cuda::CUDAGuard guard(masks.device());
+  const auto m = masks.ne(0).to(torch::kUInt8).contiguous();
+  std::vector<torch::Tensor> outs;
+  for (int f = 0; f < 4; ++f)
+    outs.push_back(torch::empty({B, H, W}, m.options().dtype(torch::kInt32)));
+  check_launch(component_extents_launch(
+                   m.data_ptr<uint8_t>(), outs[0].data_ptr<int32_t>(),
+                   outs[1].data_ptr<int32_t>(), outs[2].data_ptr<int32_t>(),
+                   outs[3].data_ptr<int32_t>(), B, H, W, max_iters,
+                   at::cuda::getCurrentCUDAStream()),
+               "component_extents");
+  return outs;
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flow_level", &flow_level);
+  m.def("component_extents", &component_extents);
+}

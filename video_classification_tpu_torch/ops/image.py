@@ -1,0 +1,126 @@
+"""Batched image ops of the device preprocessing (channels-last tensors).
+
+Port of the JAX package's ``ops/image.py``:
+
+  * ``cubic_resize``          - separable bicubic resize, OpenCV INTER_CUBIC
+                                kernel (Keys, A=-0.75), replicate-clamped
+                                borders, per-sample source sizes;
+  * ``pad_to_square_resize``  - the reference ``_pad_resize_img``: centre the
+                                content in a max(h, w) square, cubic-resize
+                                to a fixed square (chalearn_dataset.py:60-71);
+  * ``shift2d``               - per-sample 2-D shift/crop with zero fill;
+  * ``normalize``             - (x/255 - 0.45)/0.225 (chalearn_dataset.py:41-46).
+
+The JAX package writes the shift as one-hot matmuls (a TPU layout choice);
+here it is an exact gather. The cubic resampling keeps the JAX form, a
+per-sample (out, canvas) weight matrix applied by a matrix product.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+_CUBIC_A = -0.75  # OpenCV's bicubic coefficient (interpolateCubic)
+
+NORM_MEAN = 0.45
+NORM_STD = 0.225
+
+
+def _cubic_kernel(x: torch.Tensor, a: float = _CUBIC_A) -> torch.Tensor:
+    """Keys cubic convolution kernel on |x| <= 2."""
+    ax = torch.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    inner = (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0
+    outer = a * ax3 - 5.0 * a * ax2 + 8.0 * a * ax - 4.0 * a
+    return torch.where(ax <= 1.0, inner,
+                       torch.where(ax < 2.0, outer, torch.zeros_like(ax)))
+
+
+def _resample_axis(img: torch.Tensor, dim: int, out_size: int,
+                   in_size: torch.Tensor) -> torch.Tensor:
+    """Cubic-resample dim ``dim`` (1 or 2) of (S, H, W, C) float32.
+
+    ``in_size`` (S,) is each sample's true extent along ``dim``; samples past
+    it are never touched because tap coordinates clamp to [0, in_size-1].
+    OpenCV mapping: src = (dst + 0.5) * scale - 0.5."""
+    canvas = img.shape[dim]
+    dev = img.device
+    in_f = in_size.to(torch.float32)[:, None]                  # (S, 1)
+    scale = in_f / out_size
+    dst = torch.arange(out_size, dtype=torch.float32, device=dev)[None, :]
+    src = (dst + 0.5) * scale - 0.5                            # (S, out)
+    base = torch.floor(src)
+    frac = src - base
+    tap_offsets = torch.arange(-1, 3, dtype=torch.float32, device=dev)
+    tap_coords = base[..., None] + tap_offsets                  # (S, out, 4)
+    hi = (in_f - 1.0)[..., None]
+    tap_idx = torch.minimum(torch.clamp(tap_coords, min=0.0), hi).to(torch.int64)
+    weights = _cubic_kernel(frac[..., None] - tap_offsets)      # (S, out, 4)
+    tap_idx = torch.clamp(tap_idx, 0, canvas - 1)
+    cols = torch.arange(canvas, device=dev)
+    w = torch.sum(torch.where(cols == tap_idx[..., None], weights[..., None],
+                              torch.zeros((), device=dev)), dim=2)  # (S, out, canvas)
+    if dim == 1:
+        return torch.einsum("soh,shwc->sowc", w, img)
+    return torch.einsum("sow,shwc->shoc", w, img)
+
+
+def cubic_resize(img: torch.Tensor, out_hw: Sequence[int], in_hw) -> torch.Tensor:
+    """Bicubic resize of (S, H, W, C) to (S, out_h, out_w, C), float32.
+
+    ``in_hw``: per-sample (h (S,), w (S,)) true extents of the content, which
+    sits in the top-left corner of the canvas."""
+    out = _resample_axis(img.float(), 1, int(out_hw[0]), in_hw[0])
+    return _resample_axis(out, 2, int(out_hw[1]), in_hw[1])
+
+
+def shift2d(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
+            out_hw: Sequence[int]) -> torch.Tensor:
+    """out[s, y, x] = img[s, y + dy[s], x + dx[s]], zero outside the image.
+
+    img (S, H, W, C); dy, dx (S,) integer tensors. Exact for every dtype."""
+    s, h, w, _ = img.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    dev = img.device
+    ys = torch.arange(oh, device=dev)[None, :] + dy.to(torch.int64)[:, None]
+    xs = torch.arange(ow, device=dev)[None, :] + dx.to(torch.int64)[:, None]
+    inside = (((ys >= 0) & (ys < h))[:, :, None]
+              & ((xs >= 0) & (xs < w))[:, None, :])             # (S, oh, ow)
+    out = img[torch.arange(s, device=dev)[:, None, None],
+              ys.clamp(0, h - 1)[:, :, None], xs.clamp(0, w - 1)[:, None, :]]
+    return torch.where(inside[..., None], out, torch.zeros((), dtype=img.dtype,
+                                                            device=dev))
+
+
+def pad_to_square_resize(img: torch.Tensor, size: int, hw) -> torch.Tensor:
+    """Centre each sample's content in a max(h, w) square, resize to ``size``.
+
+    img (S, H, W, C) whose valid content is the top-left ``hw`` = (h (S,),
+    w (S,)) region. Zero fill, nx = (m - w)//2, ny = (m - h)//2 centring,
+    bicubic resize. Returns (S, size, size, C) float32."""
+    s, hh, ww, c = img.shape
+    dev = img.device
+    h, w = hw
+    m = torch.maximum(h, w)
+    cm = max(hh, ww)
+    nx = torch.div(m - w, 2, rounding_mode="floor")
+    ny = torch.div(m - h, 2, rounding_mode="floor")
+    canvas = torch.zeros((s, cm, cm, c), dtype=img.dtype, device=dev)
+    canvas[:, :min(hh, cm), :min(ww, cm)] = img[:, :min(hh, cm), :min(ww, cm)]
+    rows = torch.arange(cm, device=dev)
+    valid = ((rows[None, :, None] < h[:, None, None])
+             & (rows[None, None, :] < w[:, None, None]))
+    canvas = torch.where(valid[..., None], canvas, torch.zeros((), dtype=img.dtype,
+                                                               device=dev))
+    square = shift2d(canvas, -ny, -nx, (cm, cm))
+    return cubic_resize(square, (size, size), in_hw=(m, m))
+
+
+def normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 -> ((x/255) - 0.45) / 0.225 in ``dtype``."""
+    x = x.to(torch.float32)
+    out = (x * (1.0 / 255.0) - NORM_MEAN) * (1.0 / NORM_STD)
+    return out.to(dtype)

@@ -1,0 +1,238 @@
+"""Online path: raw M_/K_ videos -> model-ready clips, nothing on disk.
+
+Port of the eval side of the JAX package's ``pipeline/online.py``: decode a
+video pair (or take decoded frames), cut stride-4 windows of ``CLIP_LEN``
+sampled frames (every IMG_SAMPLE_INTERVAL-th raw frame), detect per sampled
+frame (cached per raw frame), and run the device preprocessing
+(``device_pipeline.preprocess_clip_on_device``) on each window's raw frames.
+
+For each sampled frame the window carries its ``interval-1`` preceding raw
+frames, plus one extra leading frame, so the flow computes the same F0..F4
+companions the offline chain stores (chalearn_iuv_to_crop.py:25-59).
+"""
+
+from __future__ import annotations
+
+import random as pyrandom
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config.crop_cfg import crop_part_args, crop_resize_dict
+from ..data.dataset import MISSING_FILL, NUM_MODALITY_CHANNELS
+from ..ops.flow import FlowParams
+from ..ops.sampling import num_uniform_clips, uniform_clip_indices
+from ..utils.cuda import resolve_device
+from .device_pipeline import Detections, preprocess_clip_on_device
+
+
+def flow_params_from_cfg(cfg) -> FlowParams:
+    return FlowParams(
+        n_outer=int(cfg.DATA.FLOW_OUTER),
+        n_sor=int(cfg.DATA.FLOW_SOR),
+        min_width=int(cfg.DATA.FLOW_MIN_WIDTH),
+    )
+
+
+class SyntheticOnlineDetector:
+    """Deterministic detections: centred body box, banded part charts.
+
+    The chart bands cover head (23), torso (1/2), arms (6/7) and hands (3/4)
+    so every crop stream finds its component. Coordinates are in the
+    2x-padded frame, the device pipeline's contract."""
+
+    def __init__(self, heatmap_size: int = 56):
+        self.heatmap_size = heatmap_size
+        self._chart_cache: Optional[np.ndarray] = None
+
+    def _charts(self) -> np.ndarray:
+        if self._chart_cache is None:
+            hm = self.heatmap_size
+            c = np.zeros((hm, hm), np.int32)
+            rows = np.broadcast_to(np.arange(hm)[:, None], (hm, hm))
+            cols = np.broadcast_to(np.arange(hm)[None, :], (hm, hm))
+            c[(rows < hm // 5)] = 23                                   # head
+            c[(rows >= hm // 5) & (rows < 2 * hm // 5)] = 1            # torso
+            c[(rows >= hm // 5) & (rows < 2 * hm // 5) & (cols >= hm // 2)] = 2
+            arm_band = (rows >= 2 * hm // 5) & (rows < 3 * hm // 5)
+            c[arm_band & (cols < hm // 2)] = 7                         # l arm
+            c[arm_band & (cols >= hm // 2)] = 6                        # r arm
+            hand_band = rows >= 3 * hm // 5  # generous: hand crops must clear
+            c[hand_band & (cols < hm // 2)] = 4  # the >=15 px rule in tests
+            c[hand_band & (cols >= hm // 2)] = 3
+            self._chart_cache = c
+        return self._chart_cache
+
+    def __call__(self, padded_frames_bgr: torch.Tensor) -> Detections:
+        """(S, 2H, 2W, 3) uint8 padded frames -> detections on their device."""
+        s, ph, pw = padded_frames_bgr.shape[:3]
+        dev = padded_frames_bgr.device
+        h, w = ph // 2, pw // 2
+        box = np.asarray([w * 0.6, h * 0.55, w * 1.4, h * 1.45], np.float32)
+        hm = self.heatmap_size
+        uu = np.linspace(0.0, 1.0, hm, dtype=np.float32)
+        uv = np.stack([np.tile(uu, (hm, 1)), np.tile(uu[:, None], (1, hm))])
+        return Detections(
+            boxes_xyxy=torch.from_numpy(np.tile(box, (s, 1))).to(dev),
+            valid=torch.ones((s,), dtype=torch.bool, device=dev),
+            charts=torch.from_numpy(self._charts()).to(dev).expand(s, hm, hm),
+            uv=torch.from_numpy(uv).to(dev).expand(s, 2, hm, hm),
+        )
+
+
+def make_online_detector(cfg):
+    kind = str(cfg.DATA.ONLINE_DETECTOR)
+    if kind == "synthetic":
+        return SyntheticOnlineDetector()
+    if kind == "densepose":
+        raise NotImplementedError(
+            "DATA.ONLINE_DETECTOR 'densepose' needs the DensePose detector and "
+            "its NMS kernel, which a later slice of the port brings")
+    raise ValueError(f"unknown DATA.ONLINE_DETECTOR: {kind}")
+
+
+def _read_video(path, gray: bool) -> Optional[np.ndarray]:
+    import cv2  # only needed to decode files
+
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            if gray:
+                frame = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)[..., None]
+            frames.append(frame)
+    finally:
+        cap.release()
+    return np.stack(frames) if frames else None
+
+
+class OnlineVideoDataset:
+    """Eval clips of raw videos through the device preprocessing.
+
+    ``labels`` lists (m_path, k_path, label) entries relative to
+    ``CHALEARN.ROOT/CHALEARN.SAMPLE`` (absolute paths work too; a None k_path
+    means no depth video). ``videos`` maps an index to already decoded
+    (rgb (T, H, W, 3), depth (T, H, W, 1) or None) uint8 frames, which skips
+    decoding. ``timer`` (utils/profiling.StageTimer) records stage times."""
+
+    def __init__(self, cfg, detector=None,
+                 flow_params: Optional[FlowParams] = None, labels=None,
+                 videos: Optional[Dict[int, Tuple]] = None, device=None,
+                 timer=None) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.clip_len = int(cfg.CHALEARN.CLIP_LEN)
+        self.interval = int(cfg.CHALEARN.IMG_SAMPLE_INTERVAL)
+        self.crop_folder = cfg.MODEL.R3D_INPUT
+        self.crop_size = crop_resize_dict[self.crop_folder]
+        self.labels = list(labels) if labels is not None else [
+            (None, None, 1) for _ in sorted(videos or {})]
+        self.detector = detector if detector is not None else make_online_detector(cfg)
+        self.flow_params = flow_params or flow_params_from_cfg(cfg)
+        self.timer = timer
+        parts = [p for p in crop_part_args if p[1] == self.crop_folder]
+        if not parts:
+            raise ValueError(f"{self.crop_folder} is not a part-crop stream")
+        self._parts = tuple(parts)
+        self._decode_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        for index, (rgb, depth) in (videos or {}).items():
+            self._decode_cache[index] = self._to_device(rgb, depth)
+        # Per-(video, raw frame) detections: stride-4 eval windows share
+        # 16/20 sampled frames, so the detector sees each frame once.
+        self._det_cache: Dict[int, Dict[int, Tuple]] = {}
+
+    def _to_device(self, rgb, depth) -> Tuple[torch.Tensor, torch.Tensor]:
+        rgb = torch.as_tensor(rgb, dtype=torch.uint8)
+        if rgb.dim() != 4 or rgb.shape[-1] != 3:
+            raise ValueError(f"rgb frames must be (T, H, W, 3), got {tuple(rgb.shape)}")
+        if depth is None or len(depth) != len(rgb):
+            depth = torch.full(rgb.shape[:3] + (1,), MISSING_FILL, dtype=torch.uint8)
+        depth = torch.as_tensor(depth, dtype=torch.uint8)
+        return rgb.to(self.device), depth.to(self.device)
+
+    def _decode(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if index in self._decode_cache:
+            return self._decode_cache[index]
+        m_rel, k_rel, _ = self.labels[index]
+        root = Path(self.cfg.CHALEARN.ROOT, self.cfg.CHALEARN.SAMPLE)
+        rgb = _read_video(root / m_rel, gray=False)
+        depth = _read_video(root / k_rel, gray=True) if k_rel else None
+        if rgb is None:
+            rgb = np.full((1, 64, 64, 3), MISSING_FILL, np.uint8)
+        if len(self._decode_cache) >= 8:
+            self._decode_cache.pop(next(iter(self._decode_cache)))
+        self._decode_cache[index] = self._to_device(rgb, depth)
+        return self._decode_cache[index]
+
+    def _seq_len_sampled(self, index: int) -> int:
+        n = self._decode(index)[0].shape[0]
+        return max(-(-n // self.interval), 1)
+
+    def _virtual_window(self, sampled_idx: List[int], t_video: int) -> np.ndarray:
+        """Raw-frame indices of the virtual window: sampled frame k sits at
+        virtual position (k+1)*interval, preceded by its interval-1 flow
+        companions, and one extra leading frame makes position 1's flow the
+        real pair (raw-interval, raw-interval+1); indices clamp at the video
+        start."""
+        iv = self.interval
+        n = len(sampled_idx) * iv + 1
+        raw = np.zeros((n,), np.int64)
+        raw[0] = sampled_idx[0] * iv - iv
+        for j in range(1, n):
+            k = (j - 1) // iv
+            delta = (k + 1) * iv - j
+            raw[j] = sampled_idx[k] * iv - delta
+        return np.clip(raw, 0, t_video - 1)
+
+    def _detections_for(self, index: int, frames: torch.Tensor,
+                        raw_sampled: np.ndarray) -> Detections:
+        """Per-sampled-frame detections, cached by raw frame index; the
+        detector only sees frames absent from the cache."""
+        if index not in self._det_cache:
+            if len(self._det_cache) >= 8:
+                self._det_cache.pop(next(iter(self._det_cache)))
+            self._det_cache[index] = {}
+        cache = self._det_cache[index]
+        missing = sorted({int(r) for r in raw_sampled} - cache.keys())
+        if missing:
+            h, w = frames.shape[1:3]
+            padded = frames.new_zeros((len(missing), 2 * h, 2 * w, 3))
+            padded[:, h // 2:h // 2 + h, w // 2:w // 2 + w] = frames[missing]
+            dets = self.detector(padded)
+            for j, r in enumerate(missing):
+                cache[r] = tuple(t[j] for t in dets)
+        rows = [cache[int(r)] for r in raw_sampled]
+        return Detections(*(torch.stack(col) for col in zip(*rows)))
+
+    def _make_clip(self, index: int, sampled_idx: List[int]) -> torch.Tensor:
+        """(S, size, size, 21) uint8 clip on the device."""
+        rgb, depth = self._decode(index)
+        raw_idx = self._virtual_window(sampled_idx, rgb.shape[0])
+        s = len(sampled_idx)
+        sampled_pos = np.arange(self.interval, len(raw_idx), self.interval)
+        if len(sampled_pos) != s:
+            raise AssertionError("virtual window lost a sampled frame")
+        dets = self._detections_for(index, rgb, raw_idx[sampled_pos])
+        idx = torch.from_numpy(raw_idx).to(self.device)
+        out = preprocess_clip_on_device(
+            rgb[idx], depth[idx], dets, interval=self.interval,
+            parts=self._parts, flow_params=self.flow_params,
+            sampled_start=self.interval, timer=self.timer)
+        clip = out[self.crop_folder]
+        if clip.shape != (s, self.crop_size, self.crop_size, NUM_MODALITY_CHANNELS):
+            raise AssertionError(f"clip shape {tuple(clip.shape)}")
+        return clip
+
+    def get_eval_clips(self, index: int, rng: pyrandom.Random) -> Dict:
+        seq = self._seq_len_sampled(index)
+        clips = uniform_clip_indices(seq, self.clip_len, rng)
+        return {"clips": [self._make_clip(index, ci) for ci in clips],
+                "label": self.labels[index][2] - 1}
+
+    def num_eval_clips(self, index: int) -> int:
+        return num_uniform_clips(self._seq_len_sampled(index), self.clip_len)

@@ -1,0 +1,122 @@
+"""Where a serving request's device time goes, on one NVIDIA GPU.
+
+    python3 -m video_classification_tpu_torch.profile_serving [--requests 3]
+
+Serves 130-frame 240x320 synthetic videos (two clip windows each) through
+the slowfast-HTAH Predictor at full width with seeded random weights: one
+warm-up request, then ``--requests`` timed ones (host clock, synchronised),
+then one request under ``torch.profiler``. Prints the kernel time summed by
+group (K1 flow_level, K2 component_extents, convolutions and matrix
+products, the rest), the launch counts, the top kernels, the kernel names in
+each named group, and the device's
+busy share: profiled kernel time over the unprofiled request time. Raises
+without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+
+from .config import load_model_cfg
+from .engine import Predictor
+from .utils.cuda import resolve_device
+from .utils.synthetic import coherent_motion_frames
+
+# The port's kernels are matched by their full names' prefix (they live in
+# an anonymous namespace of csrc/*.cu), the libraries' by substring.
+PORT_KERNELS = (
+    ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
+                    "sor_kernel", "finish_kernel")),
+    ("component_extents", ("extents_kernel",)),
+)
+LIBRARY_KERNELS = ("conv_and_matmul", (
+    "conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "winograd", "fprop",
+    "cutlass"))
+GROUPS = tuple(g for g, _ in PORT_KERNELS) + (LIBRARY_KERNELS[0], "other")
+
+
+def _group(name: str) -> str:
+    for group, kernels in PORT_KERNELS:
+        if any(name.startswith(f"(anonymous namespace)::{k}(") for k in kernels):
+            return group
+    low = name.lower()
+    if any(k in low for k in LIBRARY_KERNELS[1]):
+        return LIBRARY_KERNELS[0]
+    return "other"
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=3)
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    # A root without checkpoints: the model keeps its seeded random weights.
+    root = str(Path(__file__).resolve().parent / "no_checkpoints")
+    pred = Predictor(load_model_cfg("slowfast-HTAH", ["CHALEARN.ROOT", root]),
+                     device=dev)
+    rgb = coherent_motion_frames(130, 240, 320, torch.Generator().manual_seed(10))
+    depth = rgb.float().mean(-1, keepdim=True).to(torch.uint8)
+    rgb, depth = rgb.numpy(), depth.numpy()
+
+    pred.predict_frames(rgb, depth)  # warm-up: cuDNN plans, allocator
+    walls = []
+    for _ in range(args.requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_frames(rgb, depth)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sum(walls) / len(walls)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.predict_frames(rgb, depth)
+        torch.cuda.synchronize()
+    # Device-side events only (kernels, copies): the CPU-side op entries
+    # carry their kernels' time too and would count it twice.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
+    for e in kernels:
+        g = groups[_group(e.key)]
+        g["ms"] += _device_us(e) / 1e3
+        g["launches"] += int(e.count)
+    for group, _ in PORT_KERNELS:
+        if groups[group]["launches"] == 0:
+            raise RuntimeError(f"no {group} kernel in the profile")
+    device_ms = sum(g["ms"] for g in groups.values())
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "request_s": [round(w, 4) for w in walls],
+        "request_mean_s": round(wall, 4),
+        "device_kernel_ms": round(device_ms, 3),
+        "device_busy_share": (round(device_ms / 1e3 / wall, 4) if device_ms
+                              else "not measured"),
+        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
+                   for g, v in groups.items()},
+        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
+                         "launches": int(e.count)} for e in top],
+        "named_group_kernels": {
+            g: sorted({e.key[:90] for e in kernels if _group(e.key) == g})
+            for g in GROUPS[:-1]},
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,53 @@
+"""Device selection and the build of the hand-written CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` behind plain C++ launchers, bound to
+PyTorch by ``csrc/bindings.cpp``. ``build()`` compiles them as one extension
+with ``torch.utils.cpp_extension.load`` at first use (ninja runs one compiler
+per source, all at once) for ``sm_90a`` into ``.torch_ext/`` at the root of
+the checkout; nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
+SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu")
+# -fmad=false keeps every multiply and add separately rounded (no fused
+# multiply-add contraction), so a kernel performs the same float32 operations,
+# in the same order, as its plain PyTorch twin.
+CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false"]
+
+_ext = None
+_lock = threading.Lock()
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA. A CUDA device without a usable card raises: entry
+    points never drift to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def build():
+    """The kernel extension (``flow_level``, ``component_extents``), compiled
+    at first use. Raises with the compiler's output if the build fails."""
+    global _ext
+    with _lock:
+        if _ext is None:
+            from torch.utils.cpp_extension import load
+
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _ext = load(name="vct_kernels",
+                        sources=[str(CSRC / s) for s in SOURCES],
+                        extra_cflags=["-O2"], extra_cuda_cflags=CUDA_FLAGS,
+                        build_directory=str(BUILD_DIR))
+        return _ext
