@@ -84,6 +84,7 @@ def test_chip_smoke_fails_without_cuda_and_outside_a_checkout(tmp_path):
 
 def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     """CPU tensors take the plain versions: no nvcc is needed or called."""
+    from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
     from video_classification_tpu_torch.ops.flow_level import flow_level
     from video_classification_tpu_torch.utils import cuda
@@ -97,3 +98,6 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
                           1, 2, 0.012, 1.8, 1e-6, 8, 0.0)
     assert u.shape == (1, 8, 9) and mx.shape == (1,)
     assert len(component_extents(torch.ones((1, 4, 4), dtype=torch.bool))) == 4
+    boxes = torch.tensor([[[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 4.0, 4.0]]])
+    idx, mask = nms(boxes, torch.tensor([[0.5, 0.9]]), 2, 0.5)
+    assert idx.tolist() == [[1, 0]] and mask.tolist() == [[True, False]]

@@ -12,7 +12,6 @@ early exit off, since the JAX CPU path always runs every outer.
 import random
 from pathlib import Path
 
-import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,34 +28,8 @@ from video_classification_tpu_torch.engine import Predictor
 from video_classification_tpu_torch.models import state_dict_from_jax
 from video_classification_tpu_torch.ops.flow import FlowParams
 from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
-from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
-
-
-def _configure(c, root):
-    c.CHALEARN.ROOT = str(root)
-    c.CHALEARN.NUM_CLASS = 3
-    c.CHALEARN.SAMPLE_CLASS = 3
-    c.CHALEARN.CLIP_LEN = 2
-    c.CHALEARN.BATCH_SIZE = 2
-    c.MODEL.DEPTH = 18
-    c.MODEL.NAME = "slowfast-port-test"
-    c.MODEL.R3D_INPUT = "CropLHand"
-    c.DATA.FLOW_OUTER = 2
-    c.DATA.FLOW_SOR = 4
-    c.DATA.FLOW_MIN_WIDTH = 16
-    return c
-
-
-def _read(path, gray):
-    cap = cv2.VideoCapture(str(path))
-    frames = []
-    while True:
-        ok, frame = cap.read()
-        if not ok:
-            break
-        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)[..., None] if gray else frame)
-    cap.release()
-    return np.stack(frames)
+from torch_port_support import configure_serving, one_torch_thread  # noqa: F401
+from torch_port_support import read_video
 
 
 def _randomised(variables, seed):
@@ -88,14 +61,14 @@ def _randomised(variables, seed):
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     root = tmp_path_factory.mktemp("port_serving")
-    jcfg = _configure(jax_get_cfg(), root)
+    jcfg = configure_serving(jax_get_cfg(), root)
     jcfg.TPU.COMPUTE_DTYPE = "float32"
     generate_raw_fixture(jcfg, num_videos_per_set=1, num_classes=1,
                          num_frames=34, hw=(64, 96), sets=("train",))
     sample_data(jcfg, sets=("train",))
     m = next(Path(root, "1_Sample").glob("**/M_*.avi"))
     k = Path(str(m).replace("M_", "K_"))
-    rgb, depth = _read(m, gray=False), _read(k, gray=True)
+    rgb, depth = read_video(m, gray=False), read_video(k, gray=True)
 
     jax_pred = JaxPredictor(jcfg, detector=jax_online.SyntheticOnlineDetector())
     variables = _randomised(jax.device_get(jax_pred.variables), seed=0)
@@ -109,7 +82,7 @@ def served(tmp_path_factory):
     finally:
         jax_online.OnlineVideoDataset._decode = orig_decode
 
-    cfg = _configure(get_cfg(), root)
+    cfg = configure_serving(get_cfg(), root)
     cfg.CUDA.COMPUTE_DTYPE = "float32"
     pred = Predictor(cfg, detector=SyntheticOnlineDetector(), device="cpu",
                      flow_params=FlowParams(n_outer=2, n_sor=4, min_width=16,

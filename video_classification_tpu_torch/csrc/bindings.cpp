@@ -1,7 +1,9 @@
 // PyTorch bindings of the hand-written CUDA kernels of this directory:
-// flow_level (flow_level.cu) and component_extents (component_extents.cu).
+// flow_level (flow_level.cu), component_extents (component_extents.cu) and
+// nms (nms.cu).
 // Built together as one extension by utils/cuda.py::build; the Python
-// wrappers in ops/ call these on CUDA tensors only.
+// wrappers (ops/flow_level.py, ops/component_extents.py, detect/nms.py) call
+// these on CUDA tensors only.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -23,6 +25,10 @@ cudaError_t component_extents_launch(const uint8_t* masks, int32_t* mnr,
                                      int32_t* mxr, int32_t* mnc, int32_t* mxc,
                                      int B, int H, int W, int max_iters,
                                      cudaStream_t st);
+int64_t nms_smem_bytes(int64_t N);
+cudaError_t nms_launch(const float* boxes, const float* scores, int32_t* idx,
+                       bool* mask, int B, int N, int max_out, float thr,
+                       cudaStream_t st);
 
 namespace {
 
@@ -97,9 +103,36 @@ std::vector<torch::Tensor> component_extents(const torch::Tensor& masks,
   return outs;
 }
 
+// (idx, mask): see detect/nms.py::nms.
+std::vector<torch::Tensor> nms(const torch::Tensor& boxes_in,
+                               const torch::Tensor& scores_in,
+                               int64_t max_out, double thr) {
+  const auto boxes = cuda_f32(boxes_in, "boxes");
+  const auto scores = cuda_f32(scores_in, "scores");
+  TORCH_CHECK(boxes.dim() == 3 && boxes.size(2) == 4,
+              "boxes must be (B, N, 4)");
+  const int64_t B = boxes.size(0), N = boxes.size(1);
+  TORCH_CHECK(scores.dim() == 2 && scores.size(0) == B && scores.size(1) == N,
+              "scores must be (B, N)");
+  TORCH_CHECK(B > 0 && N > 0 && max_out > 0, "nms: empty input or output");
+  TORCH_CHECK(nms_smem_bytes(N) <= kMaxSmem, "nms: ", N,
+              " boxes exceed one block's shared memory (at most ",
+              kMaxSmem / nms_smem_bytes(1), ")");
+  const c10::cuda::CUDAGuard guard(boxes.device());
+  auto idx = torch::empty({B, max_out}, boxes.options().dtype(torch::kInt32));
+  auto mask = torch::empty({B, max_out}, boxes.options().dtype(torch::kBool));
+  check_launch(nms_launch(boxes.data_ptr<float>(), scores.data_ptr<float>(),
+                          idx.data_ptr<int32_t>(), mask.data_ptr<bool>(), B, N,
+                          max_out, (float)thr,
+                          at::cuda::getCurrentCUDAStream()),
+               "nms");
+  return {idx, mask};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flow_level", &flow_level);
   m.def("component_extents", &component_extents);
+  m.def("nms", &nms);
 }

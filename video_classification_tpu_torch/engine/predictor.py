@@ -29,7 +29,7 @@ class Predictor:
 
     ``device`` defaults to CUDA (raising if there is none); ``state_dict``
     skips the checkpoint lookup; ``timer`` (utils/profiling.StageTimer)
-    records the 'flow', 'crops' and 'network' stages."""
+    records the 'detect', 'flow', 'crops' and 'network' stages."""
 
     def __init__(self, cfg, detector=None, flow_params=None, device=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -50,7 +50,7 @@ class Predictor:
         """A fresh dataset per request: a caller holding an earlier result
         keeps reading its own video; the detector is shared."""
         if self._detector is None:
-            self._detector = make_online_detector(self.cfg)
+            self._detector = make_online_detector(self.cfg, self.device)
         fp = self._flow_params or flow_params_from_cfg(self.cfg)
         return OnlineVideoDataset(self.cfg, detector=self._detector,
                                   flow_params=fp, labels=labels, videos=videos,

@@ -1,14 +1,15 @@
-"""Building blocks of the 3D-CNNs (NCDHW).
+"""Building blocks of the 3D-CNNs (NCDHW) and the 2D detector (NCHW).
 
 Parameters live in the parameter dtype (float32) and each layer computes in
 its input's dtype (the compute dtype, bfloat16 on the card by default), as
 the JAX package's layers do. BatchNorm is the serving (eval) form with the
 JAX package's arithmetic: x * (rsqrt(var + eps) * scale) + (bias - mean * that).
+GroupNorm keeps flax's arithmetic (float32 statistics, E[x^2] - E[x]^2).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -38,6 +39,43 @@ def conv3d(in_channels: int, out_channels: int, kernel, stride=(1, 1, 1),
                   padding=same_pad(kernel), bias=bias)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in its input's dtype, then applies an optional
+    ``norm`` submodule (detectron2's key grammar: ``<conv>.norm.*``) and an
+    optional ReLU."""
+
+    def __init__(self, *args, norm: Optional[nn.Module] = None,
+                 relu: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.norm = norm
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                     self.padding, self.dilation, self.groups)
+        if self.norm is not None:
+            y = self.norm(y)
+        return F.relu(y) if self.relu else y
+
+
+def conv2d(in_channels: int, out_channels: int, kernel: int, stride: int = 1,
+           bias: bool = False, **kwargs) -> Conv2d:
+    """Square 2D conv with torch-style k//2 padding."""
+    return Conv2d(in_channels, out_channels, kernel, stride,
+                  padding=kernel // 2, bias=bias, **kwargs)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     """nn.Linear that computes in its input's dtype."""
 
@@ -46,9 +84,10 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-class BatchNorm3d(nn.Module):
-    """Eval-mode BatchNorm with running statistics (weight, bias,
-    running_mean, running_var: the torch state_dict names).
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm of an (N, C, ...) tensor of any rank, with running
+    statistics (weight, bias, running_mean, running_var: the torch
+    state_dict names); detectron2's FrozenBatchNorm2d is the same function.
 
     Training mode is not supported here: the training slice must update the
     running variance with the biased batch variance, as the JAX package does,
@@ -65,11 +104,38 @@ class BatchNorm3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise NotImplementedError(
-                "BatchNorm3d here is eval-only; call model.eval()")
+                "BatchNorm here is eval-only; call model.eval()")
         inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
         shift = self.bias.float() - self.running_mean.float() * inv
         view = (1, -1) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm of an (N, C, ...) tensor with flax's arithmetic: float32
+    statistics, var = max(E[x^2] - E[x]^2, 0), then
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, returned in the input's
+    dtype. (torch.nn.GroupNorm's variance differs in the last bits, which can
+    flip near-tied chart argmaxes.)"""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        g = self.num_groups
+        xf = x.float().reshape(n, g, c // g, -1)
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        mean2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        view = (1, g, c // g, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(view)
+        y = (xf - mean) * mul + self.bias.float().view(view)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def max_pool_3d(x, kernel, strides, padding):

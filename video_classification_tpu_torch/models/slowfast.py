@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm3d, Linear, avg_pool_3d, conv3d, max_pool_3d
+from .layers import BatchNorm, Linear, avg_pool_3d, conv3d, max_pool_3d
 
 MODEL_STAGE_DEPTH = {
     18: (1, 1, 1, 1),
@@ -44,7 +44,7 @@ class ResBasicStem(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = conv3d(in_channels, out_channels, (1, 7, 7), (1, 2, 2))
-        self.norm = BatchNorm3d(out_channels)
+        self.norm = BatchNorm(out_channels)
 
     def forward(self, x):
         x = F.relu(self.norm(self.conv(x)))
@@ -60,12 +60,12 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         self.conv_a = conv3d(dim_in, dim_inner, conv_a_kernel,
                              (temporal_stride, 1, 1))
-        self.norm_a = BatchNorm3d(dim_inner)
+        self.norm_a = BatchNorm(dim_inner)
         self.conv_b = conv3d(dim_inner, dim_inner, (1, 3, 3),
                              (1, spatial_stride, spatial_stride))
-        self.norm_b = BatchNorm3d(dim_inner)
+        self.norm_b = BatchNorm(dim_inner)
         self.conv_c = conv3d(dim_inner, dim_out, (1, 1, 1))
-        self.norm_c = BatchNorm3d(dim_out)
+        self.norm_c = BatchNorm(dim_out)
 
     def forward(self, x):
         x = F.relu(self.norm_a(self.conv_a(x)))
@@ -83,7 +83,7 @@ class ResBlock(nn.Module):
             self.branch1_conv = conv3d(
                 dim_in, dim_out, (1, 1, 1),
                 (temporal_stride, spatial_stride, spatial_stride))
-            self.branch1_norm = BatchNorm3d(dim_out)
+            self.branch1_norm = BatchNorm(dim_out)
         else:
             self.branch1_conv = None
         self.branch2 = BottleneckBlock(dim_in, dim_inner, dim_out, conv_a_kernel,
@@ -136,7 +136,7 @@ class FuseFastToSlow(nn.Module):
         out = fusion_dim_in + fast_out
         self.conv_fast_to_slow = nn.ModuleList(
             [conv3d(fast_in, fast_out, (3, 1, 1))])
-        self.norm = nn.ModuleList([BatchNorm3d(fast_out)])
+        self.norm = nn.ModuleList([BatchNorm(fast_out)])
         if mode != "default":
             self.residual = nn.Sequential(
                 conv3d(fusion_dim_in, out, (1, 1, 1), bias=True), nn.ReLU())
@@ -144,9 +144,9 @@ class FuseFastToSlow(nn.Module):
             # ReLU before BN, as the reference orders it (my_slowfast.py:228-236).
             self.res_unit = nn.Sequential(
                 conv3d(out, out // 4, (1, 1, 1), bias=True), nn.ReLU(),
-                BatchNorm3d(out // 4),
+                BatchNorm(out // 4),
                 conv3d(out // 4, out // 4, (1, 3, 3), bias=True), nn.ReLU(),
-                BatchNorm3d(out // 4),
+                BatchNorm(out // 4),
                 conv3d(out // 4, out, (1, 1, 1), bias=True))
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -273,7 +273,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, BatchNorm3d):
+            elif isinstance(m, BatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()

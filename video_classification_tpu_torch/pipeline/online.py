@@ -5,6 +5,8 @@ video pair (or take decoded frames), cut stride-4 windows of ``CLIP_LEN``
 sampled frames (every IMG_SAMPLE_INTERVAL-th raw frame), detect per sampled
 frame (cached per raw frame), and run the device preprocessing
 (``device_pipeline.preprocess_clip_on_device``) on each window's raw frames.
+The detector is ``synthetic`` (deterministic geometry) or ``densepose``
+(``DensePoseOnlineDetector``: the DensePose R-CNN of ``detect/``).
 
 For each sampled frame the window carries its ``interval-1`` preceding raw
 frames, plus one extra leading frame, so the flow computes the same F0..F4
@@ -14,6 +16,7 @@ companions the offline chain stores (chalearn_iuv_to_crop.py:25-59).
 from __future__ import annotations
 
 import random as pyrandom
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -26,6 +29,10 @@ from ..ops.flow import FlowParams
 from ..ops.sampling import num_uniform_clips, uniform_clip_indices
 from ..utils.cuda import resolve_device
 from .device_pipeline import Detections, preprocess_clip_on_device
+
+# detectron2 Base-RCNN-FPN pixel means of caffe2 (MSRA) backbones, BGR, unit
+# std (the JAX package's detect/provider.PIXEL_MEAN).
+PIXEL_MEAN = (103.53, 116.28, 123.675)
 
 
 def flow_params_from_cfg(cfg) -> FlowParams:
@@ -82,14 +89,76 @@ class SyntheticOnlineDetector:
         )
 
 
-def make_online_detector(cfg):
+class DensePoseOnlineDetector:
+    """DensePose R-CNN detections of the sampled (2x-padded) frames: per
+    frame the best-scoring detection's box and validity, and the chart and
+    U/V of detection 0, the one ``chart_topk=1`` computed (the keep order is
+    score-descending), as the JAX package's detector returns them.
+
+    Weights come from ``state_dict``, else from ``DATA.DENSEPOSE_PKL`` (a
+    detectron2 pkl, ``detect/d2_convert.load_densepose_state_dict``), else,
+    only with ``allow_random_init=True``, from a torch.Generator seeded with
+    ``CUDA.SEED``. ``compute_dtype="auto"`` is bfloat16 on CUDA, float32 on the
+    CPU. Frames run in chunks of ``batch_size``."""
+
+    def __init__(self, cfg, state_dict=None, depth: int = 101,
+                 pre_nms_topk: int = 256, post_nms_topk: int = 64,
+                 max_detections: int = 8, chart_pooler_size: int = 28,
+                 batch_size: int = 20, allow_random_init: bool = False,
+                 compute_dtype: str = "auto", device=None):
+        from ..detect.d2_convert import load_densepose_state_dict
+        from ..detect.densepose import DensePoseRCNN, init_weights
+
+        self.device = resolve_device(device)
+        if state_dict is None and str(cfg.DATA.DENSEPOSE_PKL):
+            state_dict = load_densepose_state_dict(cfg.DATA.DENSEPOSE_PKL, depth=depth)
+        if state_dict is None and not allow_random_init:
+            raise ValueError(
+                "DensePoseOnlineDetector has no weights: set DATA.DENSEPOSE_PKL "
+                "to a detectron2 model_final_*.pkl or pass state_dict=...; "
+                "a randomly initialised detector gives meaningless crops, so "
+                "callers that want one pass allow_random_init=True")
+        if compute_dtype == "auto":
+            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
+        model = DensePoseRCNN(
+            depth=depth, pre_nms_topk=pre_nms_topk, post_nms_topk=post_nms_topk,
+            max_detections=max_detections, chart_pooler_size=chart_pooler_size,
+            chart_topk=1, compute_dtype=getattr(torch, compute_dtype))
+        if state_dict is None:
+            init_weights(model, torch.Generator().manual_seed(int(cfg.CUDA.SEED)))
+        else:
+            model.load_state_dict(state_dict)
+        self.model = model.to(self.device).eval()
+        self.heatmap_size = model.heatmap_size
+        self.batch_size = max(1, int(batch_size))
+        self._mean = torch.tensor(PIXEL_MEAN, device=self.device)
+
+    @torch.inference_mode()
+    def __call__(self, padded_frames_bgr: torch.Tensor) -> Detections:
+        """(S, 2H, 2W, 3) uint8 padded frames -> detections on the device."""
+        x = (padded_frames_bgr.to(self.device).float() - self._mean).permute(0, 3, 1, 2)
+        cols = []
+        for start in range(0, x.shape[0], self.batch_size):
+            res = self.model(x[start:start + self.batch_size].contiguous())
+            best = torch.argmax(res["scores"], dim=1)
+            rows = torch.arange(best.shape[0], device=best.device)
+            cols.append((res["boxes"][rows, best], res["valid"][rows, best],
+                         res["charts"][:, 0],
+                         torch.stack([res["u"][:, 0], res["v"][:, 0]], dim=1)))
+        boxes, valid, charts, uv = (torch.cat(c) for c in zip(*cols))
+        return Detections(boxes_xyxy=boxes, valid=valid, charts=charts, uv=uv)
+
+
+def make_online_detector(cfg, device=None):
     kind = str(cfg.DATA.ONLINE_DETECTOR)
     if kind == "synthetic":
         return SyntheticOnlineDetector()
     if kind == "densepose":
-        raise NotImplementedError(
-            "DATA.ONLINE_DETECTOR 'densepose' needs the DensePose detector and "
-            "its NMS kernel, which a later slice of the port brings")
+        # Raises unless DATA.DENSEPOSE_PKL is set: the config path never
+        # serves from a randomly initialised detector. One chunk per clip's
+        # CLIP_LEN sampled frames.
+        return DensePoseOnlineDetector(
+            cfg, batch_size=max(1, int(cfg.CHALEARN.CLIP_LEN)), device=device)
     raise ValueError(f"unknown DATA.ONLINE_DETECTOR: {kind}")
 
 
@@ -118,7 +187,8 @@ class OnlineVideoDataset:
     ``CHALEARN.ROOT/CHALEARN.SAMPLE`` (absolute paths work too; a None k_path
     means no depth video). ``videos`` maps an index to already decoded
     (rgb (T, H, W, 3), depth (T, H, W, 1) or None) uint8 frames, which skips
-    decoding. ``timer`` (utils/profiling.StageTimer) records stage times."""
+    decoding. ``timer`` (utils/profiling.StageTimer) records stage times:
+    'detect' here, 'flow' and 'crops' in the device pipeline."""
 
     def __init__(self, cfg, detector=None,
                  flow_params: Optional[FlowParams] = None, labels=None,
@@ -132,7 +202,8 @@ class OnlineVideoDataset:
         self.crop_size = crop_resize_dict[self.crop_folder]
         self.labels = list(labels) if labels is not None else [
             (None, None, 1) for _ in sorted(videos or {})]
-        self.detector = detector if detector is not None else make_online_detector(cfg)
+        self.detector = (detector if detector is not None
+                         else make_online_detector(cfg, self.device))
         self.flow_params = flow_params or flow_params_from_cfg(cfg)
         self.timer = timer
         parts = [p for p in crop_part_args if p[1] == self.crop_folder]
@@ -203,7 +274,9 @@ class OnlineVideoDataset:
             h, w = frames.shape[1:3]
             padded = frames.new_zeros((len(missing), 2 * h, 2 * w, 3))
             padded[:, h // 2:h // 2 + h, w // 2:w // 2 + w] = frames[missing]
-            dets = self.detector(padded)
+            stage = self.timer if self.timer is not None else (lambda _n: nullcontext())
+            with stage("detect"):
+                dets = self.detector(padded)
             for j, r in enumerate(missing):
                 cache[r] = tuple(t[j] for t in dets)
         rows = [cache[int(r)] for r in raw_sampled]

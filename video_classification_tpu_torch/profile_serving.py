@@ -1,16 +1,20 @@
 """Where a serving request's device time goes, on one NVIDIA GPU.
 
     python3 -m video_classification_tpu_torch.profile_serving [--requests 3]
+        [--detector {synthetic,densepose}]
 
 Serves 130-frame 240x320 synthetic videos (two clip windows each) through
-the slowfast-HTAH Predictor at full width with seeded random weights: one
-warm-up request, then ``--requests`` timed ones (host clock, synchronised),
-then one request under ``torch.profiler``. Prints the kernel time summed by
-group (K1 flow_level, K2 component_extents, convolutions and matrix
+the slowfast-HTAH Predictor at full width with seeded random weights, with
+the synthetic detector or the DensePose detector (depth 101, the online
+budget, bfloat16, seeded random weights): one warm-up request, then
+``--requests`` timed ones (host clock, synchronised), then one request under
+``torch.profiler``. Prints the mean stage seconds of the timed requests
+(detect, flow, crops, network: synchronised at each stage's ends, in
+requests of their own), the kernel time summed by
+group (K1 flow_level, K2 component_extents, K3 nms, convolutions and matrix
 products, the rest), the launch counts, the top kernels, the kernel names in
-each named group, and the device's
-busy share: profiled kernel time over the unprofiled request time. Raises
-without CUDA.
+each named group, and the device's busy share: profiled kernel time over
+the unprofiled request time. Raises without CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from torch.autograd import DeviceType
 
 from .config import load_model_cfg
 from .engine import Predictor
+from .pipeline.online import DensePoseOnlineDetector
 from .utils.cuda import resolve_device
+from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
 
 # The port's kernels are matched by their full names' prefix (they live in
@@ -34,6 +40,7 @@ PORT_KERNELS = (
     ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
                     "sor_kernel", "finish_kernel")),
     ("component_extents", ("extents_kernel",)),
+    ("nms", ("nms_kernel",)),
 )
 LIBRARY_KERNELS = ("conv_and_matmul", (
     "conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "winograd", "fprop",
@@ -62,12 +69,19 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--detector", choices=("synthetic", "densepose"),
+                    default="synthetic")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     # A root without checkpoints: the model keeps its seeded random weights.
     root = str(Path(__file__).resolve().parent / "no_checkpoints")
-    pred = Predictor(load_model_cfg("slowfast-HTAH", ["CHALEARN.ROOT", root]),
-                     device=dev)
+    cfg = load_model_cfg("slowfast-HTAH", ["CHALEARN.ROOT", root])
+    detector = None
+    if args.detector == "densepose":
+        detector = DensePoseOnlineDetector(
+            cfg, depth=101, batch_size=int(cfg.CHALEARN.CLIP_LEN),
+            allow_random_init=True, device=dev)
+    pred = Predictor(cfg, device=dev, detector=detector)
     rgb = coherent_motion_frames(130, 240, 320, torch.Generator().manual_seed(10))
     depth = rgb.float().mean(-1, keepdim=True).to(torch.uint8)
     rgb, depth = rgb.numpy(), depth.numpy()
@@ -81,6 +95,13 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = sum(walls) / len(walls)
+    # Stage times from as many further requests, timed separately: the
+    # timer's syncs would lengthen the requests timed above.
+    pred.timer = StageTimer(dev)
+    for _ in range(args.requests):
+        pred.predict_frames(rgb, depth)
+    stages = {k: v / args.requests for k, v in pred.timer.seconds.items()}
+    pred.timer = None
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -96,12 +117,16 @@ def main(argv=None) -> int:
         g["ms"] += _device_us(e) / 1e3
         g["launches"] += int(e.count)
     for group, _ in PORT_KERNELS:
+        if group == "nms" and detector is None:
+            continue
         if groups[group]["launches"] == 0:
             raise RuntimeError(f"no {group} kernel in the profile")
     device_ms = sum(g["ms"] for g in groups.values())
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "detector": args.detector,
+        "stage_mean_s": {k: round(v, 4) for k, v in stages.items()},
         "request_s": [round(w, 4) for w in walls],
         "request_mean_s": round(wall, 4),
         "device_kernel_ms": round(device_ms, 3),
