@@ -6,8 +6,8 @@ one NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. environment: the card's name and power limit;
-  2. build the three CUDA kernels from csrc/ (torch.utils.cpp_extension.load,
-     sm_90a, into .torch_ext/);
+  2. build the CUDA kernels of utils/cuda.SOURCES from csrc/
+     (torch.utils.cpp_extension.load, sm_90a, into .torch_ext/);
   3. K1 flow_level against its plain PyTorch version at every pyramid level
      shape of a 240x320 frame: 4 coherent-motion pairs from a nonzero initial
      flow, then the serving batch (101 pairs, timed) from zero flow; each
@@ -24,7 +24,7 @@ Phases, each fatal on failure:
      with seeded random weights serves three 130-frame 240x320 synthetic
      videos (two clip windows each) through Predictor.predict_frames, with
      per-stage times per request; the launch counts are zeroed just before
-     and read just after;
+     and read just after (K1 and K2 must launch, K4-K6 must not);
   7. the same with the DensePose detector at full width (depth 101, online
      budget 256 / 64 / 8, 112x112 charts, bfloat16, seeded random weights):
      K1, K2 and K3 launch counts, the detect stage, and the detections'
@@ -34,7 +34,28 @@ Phases, each fatal on failure:
      +-1 on >= 99.9 %, scores within 5e-3;
   9. the DensePose-detector serving code at a small size (depth 50, pooler
      14, float32) on the card and on the CPU, same frames and weights:
-     detections at the CPU tests' bars, then clips and scores as in 8.
+     detections at the CPU tests' bars, then clips and scores as in 8;
+ 10. K4 sor_solve against its plain version at every level shape, on the
+     per-op setup's coefficients of 4 pairs from a nonzero flow with cold
+     (zero) and warm (random) starts, then the 101-pair serving batch (timed);
+     uint8 of (u + du, v + dv) within +-1 on >= 99.9 %;
+ 11. K5 warp_bilinear against its plain version at every level shape, on
+     flows within, at and far past +-8 px, integer flows and flows across
+     the border (max abs error <= 1e-6), then the 101x240x320x3 serving
+     batch, timed beside F.grid_sample (the library yardstick);
+ 12. K6 label_components against its plain version, exactly: part masks at
+     56x56 and 112x112, random masks, a serpentine, rounds cut at 1 / 3 /
+     7, two 240x320 masks, and the 20-mask batches (timed);
+ 13. the per-op flow path on the card against the checked-in goldens
+     (tests/goldens; frames regenerated by numpy copies of the golden
+     tests' generators): the sinusoid 240x320 and natural 96x128 at +-1 on
+     >= 99.9 %, the natural 240x320 at +-2 on >= 99.5 % beyond 8 px of the
+     border (the whole-frame fraction is logged);
+ 14. slowfast-HTAH served at full width as in 6 with
+     FlowParams(fuse_level="off"): K4, K5 and K2 must launch, K1 and K6
+     must not;
+ 15. the per-op serving code at a small size on the card and on the CPU,
+     with n_inner 1 (fuse_level "off") and n_inner 2, at the bars of 8.
 Then one JSON line describing each kernel, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when CUDA is
 unavailable.
@@ -121,19 +142,16 @@ def executed_outers(run, n_outer: int):
     return count
 
 
-def check_flow_level(dev):
+def flow_pyramids(dev):
+    """Pyramid level shapes of a 240x320 frame and the image pyramids of 4
+    coherent-motion frame pairs, from a seed: (shapes, pyr1, pyr2, g), g the
+    generator for the phase's further random inputs."""
     import torch
-    import torch.nn.functional as F
 
     from video_classification_tpu_torch.ops.flow import (
-        FlowParams, _gaussian_blur, _pyramid_shapes, _resize_bilinear,
-        encode_flow_uint8)
-    from video_classification_tpu_torch.ops.flow_level import (
-        flow_level, flow_level_reference)
+        DEFAULT_PARAMS as p, _gaussian_blur, _pyramid_shapes, _resize_bilinear)
     from video_classification_tpu_torch.utils.synthetic import coherent_motion_frames
 
-    p = FlowParams()
-    args = (p.n_sor, p.alpha, p.omega, p.eps, p.warp_radius, p.fuse_outer_tol)
     g = torch.Generator().manual_seed(1)
     frames = coherent_motion_frames(5, 240, 320, g).to(dev).float() / 255.0
     shapes = _pyramid_shapes(240, 320, p.ratio, p.min_width)
@@ -142,6 +160,43 @@ def check_flow_level(dev):
     for hw in shapes[1:]:
         pyr1.append(_resize_bilinear(_gaussian_blur(pyr1[-1], sigma), hw))
         pyr2.append(_resize_bilinear(_gaussian_blur(pyr2[-1], sigma), hw))
+    return shapes, pyr1, pyr2, g
+
+
+def smooth_noise(g, b: int, h: int, w: int, scale: float):
+    """(b, h, w) smooth random field: 6x8 normal noise upsampled, x scale."""
+    import torch
+    import torch.nn.functional as F
+
+    noise = torch.randn((b, 1, 6, 8), generator=g)
+    return F.interpolate(noise, (h, w), mode="bilinear", align_corners=False)[:, 0] * scale
+
+
+SERVING_PAIRS = 101  # one clip window's frame pairs per flow call
+
+
+def serving_batch(pyr, lvl: int):
+    """The level's 4 pairs repeated to the serving batch."""
+    rep = -(-SERVING_PAIRS // pyr[lvl].shape[0])
+    return pyr[lvl].repeat(rep, 1, 1, 1)[:SERVING_PAIRS].contiguous()
+
+
+def bound(ops: float, nbytes: float):
+    """(bound ms, what bounds it) on the H100 SXM peaks."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS_PER_S, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def check_flow_level(dev, pyramids):
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import FlowParams, encode_flow_uint8
+    from video_classification_tpu_torch.ops.flow_level import (
+        flow_level, flow_level_reference)
+
+    p = FlowParams()
+    args = (p.n_sor, p.alpha, p.omega, p.eps, p.warp_radius, p.fuse_outer_tol)
+    shapes, pyr1, pyr2, g = pyramids
 
     worst = {"frac": 1.0, "err": 0.0}
 
@@ -157,20 +212,16 @@ def check_flow_level(dev):
             raise AssertionError(f"K1 {what}: {frac} < {FLOW_FRAC}")
 
     for lvl, (h, w) in enumerate(shapes):
-        noise = torch.randn((4, 2, 6, 8), generator=g)
-        init = F.interpolate(noise, (h, w), mode="bilinear", align_corners=False) * 1.5
-        u0, v0 = init[:, 0].contiguous().to(dev), init[:, 1].contiguous().to(dev)
+        u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
         compare(f"{h}x{w} x4, nonzero start",
                 flow_level(pyr1[lvl], pyr2[lvl], u0, v0, p.n_outer, *args),
                 flow_level_reference(pyr1[lvl], pyr2[lvl], u0, v0, p.n_outer, *args))
 
     # The serving batch: one clip window's 101 frame pairs per call.
-    b = 101
-    rep = -(-b // 4)
+    b = SERVING_PAIRS
     levels = []
     for lvl, (h, w) in enumerate(shapes):
-        a1 = pyr1[lvl].repeat(rep, 1, 1, 1)[:b].contiguous()
-        a2 = pyr2[lvl].repeat(rep, 1, 1, 1)[:b].contiguous()
+        a1, a2 = serving_batch(pyr1, lvl), serving_batch(pyr2, lvl)
         z = torch.zeros((b, h, w), device=dev)
         ms = cuda_ms(lambda: flow_level(a1, a2, z, z, p.n_outer, *args))
         got = flow_level(a1, a2, z, z, p.n_outer, *args)
@@ -180,17 +231,28 @@ def check_flow_level(dev):
         outers = int(executed_outers(
             lambda k: flow_level(a1, a2, z, z, k, *args), p.n_outer).sum())
         ops = outers * h * w * flow_ops_per_pixel_outer(3, p.n_sor)
-        nbytes = (2 * a1.numel() + 4 * z.numel() + b) * 4
-        bound = 1e3 * max(ops / PEAK_F32_OPS_PER_S, nbytes / PEAK_BYTES_PER_S)
+        bound_ms, bound_by = bound(ops, (2 * a1.numel() + 4 * z.numel() + b) * 4)
         row = {"level": f"{h}x{w}", "pairs": b, "ms": round(ms, 4),
-               "outers": outers, "bound_ms": round(bound, 4),
-               "bound_by": "operations" if ops / PEAK_F32_OPS_PER_S
-               > nbytes / PEAK_BYTES_PER_S else "bytes",
-               "plain_ms": round(plain_ms, 4)}
+               "outers": outers, "bound_ms": round(bound_ms, 4),
+               "bound_by": bound_by, "plain_ms": round(plain_ms, 4)}
         levels.append(row)
         log(f"  K1 time {json.dumps(row)}")
     return {"max_abs_err": worst["err"], "worst_within": worst["frac"],
             "levels": levels, **levels[0]}
+
+
+def executed_rounds(converged, cap: int) -> int:
+    """Rounds a propagation that stops at its fixed point executes: the
+    fewest k with converged(k), found by bisection, plus the last round,
+    which sees no change; at most cap."""
+    lo, hi = 0, cap
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if converged(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return min(lo + 1, cap)
 
 
 def serpentine(h: int, w: int):
@@ -245,23 +307,14 @@ def check_component_extents(dev):
         max_err = max(max_err, exact(f"{hm}x{hm} serving masks x20", masks))
         ms = cuda_ms(lambda: component_extents(masks), reps=20)
         want, plain = cuda_call_ms(lambda: component_extents_reference(masks))
-        lo, hi = 0, 2 * hm
-        while lo < hi:  # fewest iterations that reach the fixed point
-            mid = (lo + hi) // 2
-            if all(torch.equal(a, b) for a, b in
-                   zip(component_extents_reference(masks, mid), want)):
-                hi = mid
-            else:
-                lo = mid + 1
-        iters = min(lo + 1, 2 * hm)  # the last iteration sees no change
+        iters = executed_rounds(lambda k: all(torch.equal(a, b) for a, b in zip(
+            component_extents_reference(masks, k), want)), 2 * hm)
         b, h, w = masks.shape
         ops = b * iters * h * w * (8 * 4 + 4)
-        nbytes = b * h * w * (1 + 16)
+        bound_ms, bound_by = bound(ops, b * h * w * (1 + 16))
         row = {"masks": f"20x{hm}x{hm}", "ms": round(ms, 4),
                "plain_ms": round(plain, 4), "iters": iters,
-               "bound_ms": 1e3 * max(ops / PEAK_F32_OPS_PER_S, nbytes / PEAK_BYTES_PER_S),
-               "bound_by": "operations" if ops / PEAK_F32_OPS_PER_S
-               > nbytes / PEAK_BYTES_PER_S else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"  K2 time {json.dumps(row)}")
         rows.append(row)
     # The DensePose path's shape (the synthetic path's 56x56 row is logged).
@@ -363,18 +416,292 @@ def check_nms(dev, serving_calls):
         # operations and bytes.
         iters = int(torch.clamp(mask.sum(1) + 1, max=max_out).sum())
         ops = iters * n * NMS_OPS_PER_BOX_ITER + bsz * n * 4
-        nbytes = bsz * n * 20 + bsz * max_out * 5
+        bound_ms, bound_by = bound(ops, bsz * n * 20 + bsz * max_out * 5)
         row = {"batch": f"{bsz}x{n}", "thr": thr, "max_out": max_out,
                "kept": int(mask.sum()), "iters": iters, "ms": round(ms, 4),
-               "plain_ms": round(plain, 4),
-               "bound_ms": 1e3 * max(ops / PEAK_F32_OPS_PER_S, nbytes / PEAK_BYTES_PER_S),
-               "bound_by": "operations" if ops / PEAK_F32_OPS_PER_S
-               > nbytes / PEAK_BYTES_PER_S else "bytes"}
+               "plain_ms": round(plain, 4), "bound_ms": bound_ms,
+               "bound_by": bound_by}
         log(f"  K3 {what}: exact; time {json.dumps(row)}")
         rows.append(row)
     if {r["batch"] for r in rows} != {"20x1264", "20x64"}:
         raise AssertionError(f"K3: serving batches {[r['batch'] for r in rows]}")
     return {**rows[0], "rows": rows, "max_abs_err": err}
+
+
+def sor_ops_per_pixel(n_sor: int) -> int:
+    """f32 operations of K4 per pixel, counted from the kernel: setup 27
+    (wsum 3, two reciprocal diagonals 6, two constant smoothness terms 18),
+    32 per sweep (du and dv, 16 each)."""
+    return 27 + 32 * n_sor
+
+
+def warp_ops_per_pixel(c: int) -> int:
+    """f32 operations of K5 per pixel, counted from the kernel: coordinates,
+    clamps, base corner and weights 14; per channel 8 products and 3 sums."""
+    return 14 + 11 * c
+
+
+def check_sor_solve(dev, pyramids):
+    """K4 against its plain version on the per-op setup's coefficients at
+    every level: 4 pairs from a nonzero flow, cold (zero) and warm (random)
+    starts; then the 101-pair serving batch from zero flow, timed."""
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import (
+        FlowParams, _normal_equations, _outer_terms, encode_flow_uint8)
+    from video_classification_tpu_torch.ops.sor_solve import (
+        sor_solve, sor_solve_reference)
+
+    p = FlowParams()
+    shapes, pyr1, pyr2, g = pyramids
+    worst = {"frac": 1.0, "err": 0.0}
+
+    def solve_both(what, ix, iy, it, u, v, du0, dv0):
+        coeffs = _normal_equations(ix, iy, it, u, v, du0, dv0, p.eps)
+        args = (*coeffs, u, v, p.n_sor, p.alpha, p.omega, du0, dv0)
+        (dk, ek), (dr, er) = sor_solve(*args), sor_solve_reference(*args)
+        frac = within(encode_flow_uint8(u + dk, v + ek),
+                      encode_flow_uint8(u + dr, v + er), FLOW_TOL)
+        err = max(float((dk - dr).abs().max()), float((ek - er).abs().max()))
+        worst["frac"] = min(worst["frac"], frac)
+        worst["err"] = max(worst["err"], err)
+        log(f"  K4 {what}: uint8 within +-1 {frac:.6f}, max|d(du, dv)| {err:.3e}")
+        if frac < FLOW_FRAC:
+            raise AssertionError(f"K4 {what}: {frac} < {FLOW_FRAC}")
+        return args
+
+    for lvl, (h, w) in enumerate(shapes):
+        u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
+        terms = _outer_terms(pyr1[lvl], pyr2[lvl], u0, v0)
+        z = torch.zeros_like(u0)
+        solve_both(f"{h}x{w} x4, cold start", *terms, u0, v0, z, z)
+        du0, dv0 = (smooth_noise(g, 4, h, w, 0.3).to(dev) for _ in range(2))
+        solve_both(f"{h}x{w} x4, warm start", *terms, u0, v0, du0, dv0)
+
+    b = SERVING_PAIRS
+    levels = []
+    for lvl, (h, w) in enumerate(shapes):
+        z = torch.zeros((b, h, w), device=dev)
+        terms = _outer_terms(serving_batch(pyr1, lvl), serving_batch(pyr2, lvl), z, z)
+        args = solve_both(f"{h}x{w} x{b}, zero flow", *terms, z, z, z, z)
+        del terms
+        ms = cuda_ms(lambda: sor_solve(*args))
+        _, plain_ms = cuda_call_ms(lambda: sor_solve_reference(*args))
+        bound_ms, bound_by = bound(b * h * w * sor_ops_per_pixel(p.n_sor),
+                                   15 * b * h * w * 4)
+        row = {"level": f"{h}x{w}", "pairs": b, "ms": round(ms, 4),
+               "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+               "plain_ms": round(plain_ms, 4)}
+        levels.append(row)
+        log(f"  K4 time {json.dumps(row)}")
+    return {"max_abs_err": worst["err"], "worst_within": worst["frac"],
+            "levels": levels, **levels[0]}
+
+
+def check_warp(dev, pyramids):
+    """K5 against its plain version at every level on flows within, at and
+    far past +-8 px, integer flows and flows across the border; then the
+    101-pair serving batch at 240x320, timed, beside F.grid_sample."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_classification_tpu_torch.ops.warp import (
+        warp_bilinear, warp_bilinear_reference)
+
+    shapes, _, pyr2, g = pyramids
+    max_err = 0.0
+
+    def exact(what, im, u, v):
+        err = float((warp_bilinear(im, u, v) - warp_bilinear_reference(im, u, v)).abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"K5 {what}: max |kernel - plain| {err}")
+        return err
+
+    for lvl, (h, w) in enumerate(shapes):
+        im = pyr2[lvl]
+        rand = torch.rand((2, 4, h, w), generator=g).to(dev) - 0.5
+        ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1).expand(4, h, w)
+        xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w).expand(4, h, w)
+        cases = {
+            "within +-8": (rand[0] * 16, rand[1] * 16),
+            "at +-8": (torch.sign(rand[0]) * 8, torch.sign(rand[1]) * 8),
+            "far past (+-60)": (rand[0] * 120, rand[1] * 120),
+            "integer": (torch.round(rand[0] * 20), torch.round(rand[1] * 20)),
+            # onto the last row / column, past it, and past the first
+            "border": (torch.where(xs < w // 2, -xs - 1.5, w - 1 - xs + 2 * rand[0]),
+                       torch.where(ys < h // 2, -ys + rand[1], h - 1 - ys + 3.0)),
+        }
+        errs = {k: exact(f"{h}x{w} {k}", im, u.contiguous(), v.contiguous())
+                for k, (u, v) in cases.items()}
+        max_err = max(max_err, *errs.values())
+        log(f"  K5 {h}x{w} x4: max |kernel - plain| "
+            + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+
+    b, (h, w) = SERVING_PAIRS, shapes[0]
+    im = serving_batch(pyr2, 0)
+    u, v = (smooth_noise(g, b, h, w, 2.0).to(dev) for _ in range(2))
+    max_err = max(max_err, exact(f"{h}x{w} x{b}", im, u, v))
+    ms = cuda_ms(lambda: warp_bilinear(im, u, v), reps=20)
+    want, plain_ms = cuda_call_ms(lambda: warp_bilinear_reference(im, u, v))
+    # The library yardstick: grid_sample on the NCHW image with a prebuilt
+    # grid (align_corners=True maps -1..1 onto pixel centres 0..W-1; border
+    # padding clamps), which the port never calls.
+    nchw = im.permute(0, 3, 1, 2).contiguous()
+    gx = (torch.arange(w, device=dev).view(1, 1, w) + u) * (2.0 / (w - 1)) - 1.0
+    gy = (torch.arange(h, device=dev).view(1, h, 1) + v) * (2.0 / (h - 1)) - 1.0
+    grid = torch.stack([gx, gy], -1)
+
+    def library():
+        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    library_ms = cuda_ms(library, reps=20)
+    lib_err = float((library().permute(0, 2, 3, 1) - want).abs().max())
+    c = im.shape[-1]
+    bound_ms, bound_by = bound(b * h * w * warp_ops_per_pixel(c),
+                               (2 * c + 2) * b * h * w * 4)
+    row = {"batch": f"{b}x{h}x{w}x{c}", "ms": round(ms, 4),
+           "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4),
+           "library_max_abs_diff": lib_err, "bound_ms": round(bound_ms, 4),
+           "bound_by": bound_by}
+    log(f"  K5 time {json.dumps(row)}")
+    return {**row, "max_abs_err": max_err}
+
+
+def check_label_components(dev):
+    """K6 against its plain version, exactly: the synthetic detector's part
+    masks, random masks, a serpentine and rounds cut short at 56x56 and
+    112x112, two 240x320 masks; then the 20-mask batches, timed."""
+    import torch
+
+    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
+    from video_classification_tpu_torch.ops.components import part_mask
+    from video_classification_tpu_torch.ops.label_components import (
+        label_components, label_components_reference)
+    from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
+
+    def exact(what, masks, max_iters=None):
+        got = label_components(masks, max_iters)
+        want = label_components_reference(masks, max_iters)
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0 or got.dtype != torch.int32:
+            raise AssertionError(f"K6 {what}: max |kernel - plain| {err}")
+        log(f"  K6 {what}: exact")
+        return err
+
+    g = torch.Generator().manual_seed(4)
+    for hm in (56, 112):
+        charts = torch.from_numpy(SyntheticOnlineDetector(hm)._charts())
+        random45 = torch.rand((32, hm, hm), generator=g) < 0.45
+        cases = {
+            "charts": torch.stack([part_mask(charts, ids) for ids, _ in crop_part_args]),
+            "random0.45": random45,
+            "random0.25": torch.rand((32, hm, hm), generator=g) < 0.25,
+            "serpentine": serpentine(hm, hm)[None],
+        }
+        for name, masks in cases.items():
+            exact(f"{hm}x{hm} {name} x{masks.shape[0]}", masks.to(dev))
+        for cut in (1, 3, 7):
+            exact(f"{hm}x{hm} random0.45 x32, max_iters {cut}", random45.to(dev), cut)
+            exact(f"{hm}x{hm} serpentine, max_iters {cut}", serpentine(hm, hm)[None].to(dev), cut)
+    exact("240x320 random0.45 + serpentine (device-memory buffers)", torch.stack(
+        [torch.rand((240, 320), generator=g) < 0.45, serpentine(240, 320)]).to(dev))
+
+    rows = []
+    for hm in (56, 112):
+        charts = torch.from_numpy(SyntheticOnlineDetector(hm)._charts())
+        masks = part_mask(charts, crop_part_args[0][0]).expand(20, hm, hm).contiguous().to(dev)
+        exact(f"{hm}x{hm} serving masks x20", masks)
+        ms = cuda_ms(lambda: label_components(masks), reps=20)
+        want, plain = cuda_call_ms(lambda: label_components_reference(masks))
+        iters = executed_rounds(
+            lambda k: torch.equal(label_components_reference(masks, k), want), 2 * hm)
+        b, h, w = masks.shape
+        # 9 int32 minima per pixel and round (8 neighbours and the change
+        # test), counted at the f32 rate as for K2.
+        bound_ms, bound_by = bound(b * iters * h * w * 9, b * h * w * (1 + 4))
+        row = {"masks": f"20x{hm}x{hm}", "ms": round(ms, 4), "plain_ms": round(plain, 4),
+               "rounds": iters, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"  K6 time {json.dumps(row)}")
+        rows.append(row)
+    return {**rows[-1], "rows": rows, "max_abs_err": 0}
+
+
+def make_frames(seed=0, t=3, h=240, w=320):
+    """numpy copy of tests/test_flow_golden.make_frames: the sinusoid
+    golden's frames."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for k in range(t):
+        dx, dy = 1.7 * k, -1.1 * k
+        f = (127 + 60 * np.sin((xx - dx) / 23.0) * np.cos((yy - dy) / 17.0)
+             + 40 * np.sin(((xx - dx) + (yy - dy)) / 41.0))
+        f = f[..., None].repeat(3, -1) + rng.randn(h, w, 3) * 2.0
+        frames.append(np.clip(f, 0, 255).astype(np.uint8))
+    return np.stack(frames)
+
+
+def make_natural_frames(seed=7, t=3, h=240, w=320, shift=(2.3, -1.4)):
+    """numpy copy of tests/test_flow_golden.make_natural_frames: a 1/f^2
+    random field, subpixel-translated per frame, plus noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.fftfreq(w)[None, :]
+    radius = np.sqrt(fy * fy + fx * fx)
+    radius[0, 0] = 1.0
+    spectrum = (rng.randn(h, w) + 1j * rng.randn(h, w)) / radius
+    frames = []
+    for k in range(t):
+        dx, dy = shift[0] * k, shift[1] * k
+        phase = np.exp(-2j * np.pi * (fx * dx + fy * dy))
+        field = np.fft.ifft2(spectrum * phase).real
+        field = (field - field.min()) / (field.max() - field.min() + 1e-9)
+        f = 20 + 215 * field
+        f = f[..., None].repeat(3, -1) + rng.randn(h, w, 3) * 2.0
+        frames.append(np.clip(f, 0, 255).astype(np.uint8))
+    return np.stack(frames)
+
+
+def check_goldens(dev):
+    """The per-op path on the card against the checked-in flow goldens,
+    which the JAX package's per-op path made, at their tests' bars; the
+    natural 240x320 one beyond 8 px of the border (whole frame logged)."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import FlowParams, video_flow_uint8
+
+    goldens = Path(__file__).resolve().parent / "tests" / "goldens"
+    small = dict(n_outer=2, n_sor=10, min_width=16)
+    out = {}
+    for name, frames, params, tol, frac, margin in (
+            ("flow_240x320", make_frames(), {}, 1, 0.999, 0),
+            ("flow_natural_96x128", make_natural_frames(h=96, w=128), small, 1, 0.999, 0),
+            ("flow_natural_240x320", make_natural_frames(), {}, 2, 0.995, 8)):
+        want = np.load(goldens / f"{name}.npz")["flow_images"].astype(np.int32)
+        t0 = time.perf_counter()
+        got = video_flow_uint8(torch.from_numpy(frames).to(dev),
+                               FlowParams(fuse_level="off", **params))
+        got = got.cpu().numpy().astype(np.int32)
+        secs = time.perf_counter() - t0
+        ok = np.abs(got - want) <= tol
+        h, w = got.shape[1:3]
+        yy, xx = np.mgrid[0:h, 0:w]
+        inner = np.minimum(np.minimum(yy, h - 1 - yy), np.minimum(xx, w - 1 - xx)) >= margin
+        whole, gated = float(ok.mean()), float(ok[:, inner].mean())
+        log(f"  {name}: within +-{tol} {gated:.6f} beyond {margin} px of the border, "
+            f"{whole:.6f} whole frame (bar {frac}); {secs:.2f} s")
+        if gated < frac:
+            raise AssertionError(f"{name}: {gated} < {frac}")
+        out[name] = {"within": gated, "whole_frame": whole}
+    return out
 
 
 def synthetic_videos(n: int = 3):
@@ -408,10 +735,12 @@ def full_width_detector(dev, root: str):
                                    allow_random_init=True, device=dev)
 
 
-def serve_full_width(dev, root: str, videos, kernels, detector=None):
-    """Three requests through Predictor.predict_frames; ``kernels`` are the
-    wrappers whose launch counts are zeroed just before and read just
-    after. Returns (counts, latencies, the detections the detector gave)."""
+def serve_full_width(dev, root: str, videos, kernels, detector=None,
+                     flow_params=None, absent=()):
+    """Three requests through Predictor.predict_frames; ``kernels`` (which
+    must launch) and ``absent`` (which must not) are the wrappers whose
+    launch counts are zeroed just before and read just after. Returns
+    (counts of both, latencies, the detections the detector gave)."""
     import numpy as np
 
     from video_classification_tpu_torch.engine import Predictor
@@ -427,13 +756,13 @@ def serve_full_width(dev, root: str, videos, kernels, detector=None):
         return dets
 
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device=dev, timer=timer,
+    pred = Predictor(cfg, device=dev, timer=timer, flow_params=flow_params,
                      detector=None if detector is None else recording)
     log(f"  model: depth {cfg.MODEL.DEPTH}, {cfg.CHALEARN.NUM_CLASS} classes, "
         f"{pred.mm.crop_size} px, CLIP_LEN {cfg.CHALEARN.CLIP_LEN}, "
         f"{cfg.CUDA.COMPUTE_DTYPE}; built in {time.perf_counter() - t0:.2f} s")
 
-    for k in kernels:
+    for k in (*kernels, *absent):
         k.launches = 0
     timer.seconds.clear()
     latencies = []
@@ -452,11 +781,14 @@ def serve_full_width(dev, root: str, videos, kernels, detector=None):
             + ", ".join(f"{c}:{p:.4f}" for c, p in y["top"]))
         log(f"    stage seconds: {json.dumps({k: round(v, 4) for k, v in timer.seconds.items()})}")
         timer.seconds.clear()
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = {k.__name__: k.launches for k in (*kernels, *absent)}
     log(f"  launches on the serving path: {json.dumps(counts)}")
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"serving path never launched {name}")
+    for k in kernels:
+        if counts[k.__name__] == 0:
+            raise AssertionError(f"serving path never launched {k.__name__}")
+    for k in absent:
+        if counts[k.__name__] != 0:
+            raise AssertionError(f"serving path launched {k.__name__}")
     return counts, latencies, seen
 
 
@@ -482,19 +814,23 @@ def check_detections(dets, padded_hw):
         f"{dets[0].charts.shape[-1]}x{dets[0].charts.shape[-1]} charts, labels {labels}")
 
 
-def serve_small_against_cpu(dev, root: str):
+def serve_small_against_cpu(dev, root: str, **flow):
+    """The synthetic-detector serving code at a small size on the card and
+    on the CPU; ``flow`` overrides the configuration's flow parameters."""
     import torch
 
     from video_classification_tpu_torch.config import load_model_cfg
     from video_classification_tpu_torch.engine import Predictor
+    from video_classification_tpu_torch.pipeline.online import flow_params_from_cfg
     from video_classification_tpu_torch.utils.synthetic import coherent_motion_frames
 
     cfg = load_model_cfg("slowfast-LHand", [
         "CHALEARN.ROOT", root, "MODEL.DEPTH", "18", "CHALEARN.CLIP_LEN", "2",
         "CHALEARN.NUM_CLASS", "5", "CUDA.COMPUTE_DTYPE", "float32"])
+    fp = flow_params_from_cfg(cfg)._replace(**flow)
     rgb = coherent_motion_frames(34, 64, 96, torch.Generator().manual_seed(3)).numpy()
-    gpu = Predictor(cfg, device=dev)
-    cpu = Predictor(cfg, device="cpu", state_dict=gpu.model.state_dict())
+    gpu = Predictor(cfg, device=dev, flow_params=fp)
+    cpu = Predictor(cfg, device="cpu", flow_params=fp, state_dict=gpu.model.state_dict())
     clips = []
     for p in (gpu, cpu):
         clips.append(torch.stack(p.dataset(videos={0: (rgb, None)})
@@ -502,8 +838,8 @@ def serve_small_against_cpu(dev, root: str):
     frac = within(clips[0], clips[1], 1)
     sg, sc = gpu.clip_scores_frames(rgb), cpu.clip_scores_frames(rgb)
     err = float(abs(sg - sc).max())
-    log(f"  small serve card vs cpu: {clips[0].shape[0]} clips, uint8 within +-1 "
-        f"{frac:.6f}, max|dscore| {err:.3e}")
+    log(f"  small serve card vs cpu ({json.dumps(flow) if flow else 'configured flow'}): "
+        f"{clips[0].shape[0]} clips, uint8 within +-1 {frac:.6f}, max|dscore| {err:.3e}")
     if frac < FLOW_FRAC or err > SCORE_ATOL:
         raise AssertionError(f"card and cpu disagree: {frac}, {err}")
 
@@ -565,7 +901,7 @@ def main() -> int:
         return 1
     from pathlib import Path
 
-    from video_classification_tpu_torch.utils.cuda import build
+    from video_classification_tpu_torch.utils.cuda import SOURCES, build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -579,15 +915,22 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build()
-    log(f"[2] built the three kernels (torch.utils.cpp_extension.load) in "
+    kernel_sources = [k for k in SOURCES if k.endswith(".cu")]
+    log(f"[2] built the {len(kernel_sources)} kernels of utils/cuda.SOURCES "
+        f"({', '.join(kernel_sources)}; torch.utils.cpp_extension.load) in "
         f"{time.perf_counter() - t0:.2f} s")
 
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
+    from video_classification_tpu_torch.ops.flow import FlowParams
     from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.label_components import label_components
+    from video_classification_tpu_torch.ops.sor_solve import sor_solve
+    from video_classification_tpu_torch.ops.warp import warp_bilinear
 
+    pyramids = flow_pyramids(dev)
     log("[3] K1 flow_level vs plain")
-    k1 = check_flow_level(dev)
+    k1 = check_flow_level(dev, pyramids)
     log("[4] K2 component_extents vs plain")
     k2 = check_component_extents(dev)
 
@@ -605,42 +948,64 @@ def main() -> int:
     check_detections([dets], (480, 640))
     k3 = check_nms(dev, calls)
 
+    per_op = (sor_solve, warp_bilinear, label_components)
     log("[6] serving slowfast-HTAH at full width, synthetic detector")
     synth_counts, synth_lat, _ = serve_full_width(
-        dev, root, videos, (flow_level, component_extents))
+        dev, root, videos, (flow_level, component_extents), absent=per_op)
     log("[7] serving slowfast-HTAH at full width, DensePose detector")
     counts, latencies, seen = serve_full_width(
-        dev, root, videos, (flow_level, component_extents, nms), detector=detector)
+        dev, root, videos, (flow_level, component_extents, nms), detector=detector,
+        absent=per_op)
     check_detections(seen, (480, 640))
     log("[8] small serve: card vs cpu")
     serve_small_against_cpu(dev, root)
     log("[9] small DensePose-detector serve: card vs cpu")
     serve_small_detector_against_cpu(dev, root)
 
+    log("[10] K4 sor_solve vs plain")
+    k4 = check_sor_solve(dev, pyramids)
+    log("[11] K5 warp_bilinear vs plain")
+    k5 = check_warp(dev, pyramids)
+    del pyramids
+    log("[12] K6 label_components vs plain")
+    k6 = check_label_components(dev)
+    log("[13] per-op flow path on the card vs the checked-in goldens")
+    goldens = check_goldens(dev)
+    log("[14] serving slowfast-HTAH at full width, synthetic detector, per-op flow")
+    op_counts, op_lat, _ = serve_full_width(
+        dev, root, videos, (sor_solve, warp_bilinear, component_extents),
+        flow_params=FlowParams(fuse_level="off"), absent=(flow_level, label_components))
+    log("[15] small serve on the per-op flow path: card vs cpu")
+    serve_small_against_cpu(dev, root, fuse_level="off")
+    serve_small_against_cpu(dev, root, n_inner=2)
+
+    def entry(name, source, replaces, launches, k, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"video_classification_tpu_torch/csrc/{source}",
+                "replaces": f"video_classification_tpu/{replaces}",
+                "launches": launches, "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": library_ms}
+
     kernels = [
-        {"name": "flow_level", "route": "cuda",
-         "source": "video_classification_tpu_torch/csrc/flow_level.cu",
-         "replaces": "video_classification_tpu/ops/pallas_flow.py:320",
-         "launches": counts["flow_level"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
-        {"name": "component_extents", "route": "cuda",
-         "source": "video_classification_tpu_torch/csrc/component_extents.cu",
-         "replaces": "video_classification_tpu/ops/pallas_components.py:70",
-         "launches": counts["component_extents"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
-        {"name": "nms", "route": "cuda",
-         "source": "video_classification_tpu_torch/csrc/nms.cu",
-         "replaces": "video_classification_tpu/detect/pallas_nms.py:28",
-         "launches": counts["nms"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
+        entry("flow_level", "flow_level.cu", "ops/pallas_flow.py:320",
+              counts["flow_level"], k1),
+        entry("component_extents", "component_extents.cu",
+              "ops/pallas_components.py:70", counts["component_extents"], k2),
+        entry("nms", "nms.cu", "detect/pallas_nms.py:28", counts["nms"], k3),
+        entry("sor_solve", "sor_solve.cu", "ops/pallas_flow.py:53",
+              op_counts["sor_solve"], k4),
+        entry("warp_bilinear", "warp.cu", "ops/pallas_flow.py:129",
+              op_counts["warp_bilinear"], k5, k5["library_ms"]),
+        entry("label_components", "label_components.cu",
+              "ops/pallas_components.py:50", op_counts["label_components"], k6),
     ]
     log(f"done in {time.perf_counter() - t_start:.1f} s; K2 iterations "
-        f"{k2['iters']}; synthetic-detector launches {json.dumps(synth_counts)}, "
-        f"request seconds {[round(x, 3) for x in synth_lat]}; DensePose-detector "
-        f"request seconds {[round(x, 3) for x in latencies]}")
+        f"{k2['iters']}, K6 rounds {k6['rounds']}; synthetic-detector launches "
+        f"{json.dumps(synth_counts)}, request seconds {[round(x, 3) for x in synth_lat]}; "
+        f"DensePose-detector request seconds {[round(x, 3) for x in latencies]}; "
+        f"per-op launches {json.dumps(op_counts)}, request seconds "
+        f"{[round(x, 3) for x in op_lat]}; goldens {json.dumps(goldens)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

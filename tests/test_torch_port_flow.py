@@ -186,9 +186,3 @@ def test_video_flow_natural_240x320_matches_fused_pallas():
     port_frac = float((np.abs(got - want) <= 2).mean())
     fused_frac = float((np.abs(fused - want) <= 2).mean())
     assert port_frac >= fused_frac - 1e-3, (port_frac, fused_frac)
-
-
-def test_n_inner_other_than_one_is_not_ported():
-    im = torch.zeros((1, 24, 24, 3))
-    with pytest.raises(NotImplementedError):
-        tflow.coarse2fine_flow(im, im, tflow.FlowParams(n_inner=2))

@@ -87,6 +87,9 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
     from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.label_components import label_components
+    from video_classification_tpu_torch.ops.sor_solve import sor_solve
+    from video_classification_tpu_torch.ops.warp import warp_bilinear
     from video_classification_tpu_torch.utils import cuda
 
     def refuse(*_a, **_k):
@@ -101,3 +104,11 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     boxes = torch.tensor([[[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 4.0, 4.0]]])
     idx, mask = nms(boxes, torch.tensor([[0.5, 0.9]]), 2, 0.5)
     assert idx.tolist() == [[1, 0]] and mask.tolist() == [[True, False]]
+    z = torch.zeros((1, 8, 9))
+    du, dv = sor_solve(z + 1, z, z + 1, z, z, z, z, z, z, z, z, 2, 0.012, 1.8)
+    assert du.shape == dv.shape == (1, 8, 9)
+    assert warp_bilinear(im, z, z).shape == (1, 8, 9, 3)
+    assert label_components(torch.ones((1, 4, 4), dtype=torch.bool)).max() == 0
+    launches = (flow_level, component_extents, nms, sor_solve, warp_bilinear,
+                label_components)
+    assert all(k.launches == 0 for k in launches)

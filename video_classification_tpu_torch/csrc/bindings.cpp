@@ -1,9 +1,12 @@
 // PyTorch bindings of the hand-written CUDA kernels of this directory:
-// flow_level (flow_level.cu), component_extents (component_extents.cu) and
-// nms (nms.cu).
+// flow_level (flow_level.cu), component_extents (component_extents.cu), nms
+// (nms.cu), sor_solve (sor_solve.cu), warp_bilinear (warp.cu) and
+// label_components (label_components.cu).
 // Built together as one extension by utils/cuda.py::build; the Python
-// wrappers (ops/flow_level.py, ops/component_extents.py, detect/nms.py) call
-// these on CUDA tensors only.
+// wrappers (ops/flow_level.py, ops/component_extents.py, detect/nms.py,
+// ops/sor_solve.py, ops/warp.py, ops/label_components.py) call these on CUDA
+// tensors only. Only this file includes PyTorch's headers: the .cu files
+// have plain C++ launchers, which keeps their compilation short.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -29,6 +32,18 @@ int64_t nms_smem_bytes(int64_t N);
 cudaError_t nms_launch(const float* boxes, const float* scores, int32_t* idx,
                        bool* mask, int B, int N, int max_out, float thr,
                        cudaStream_t st);
+cudaError_t sor_solve_launch(const float* const* fields, float* scratch,
+                             float* du, float* dv, int B, int H, int W,
+                             int n_sor, float alpha, float omega,
+                             float one_m_omega, cudaStream_t st);
+cudaError_t warp_bilinear_launch(const float* im, const float* u,
+                                 const float* v, float* out, int B, int H,
+                                 int W, int C, cudaStream_t st);
+int64_t label_components_smem_bytes(int64_t H, int64_t W);
+cudaError_t label_components_launch(const uint8_t* masks, int32_t* out,
+                                    int32_t* scratch, int B, int H, int W,
+                                    int max_iters, int64_t max_smem,
+                                    cudaStream_t st);
 
 namespace {
 
@@ -129,10 +144,94 @@ std::vector<torch::Tensor> nms(const torch::Tensor& boxes_in,
   return {idx, mask};
 }
 
+// (du, dv): see ops/sor_solve.py::sor_solve.
+std::vector<torch::Tensor> sor_solve(
+    const torch::Tensor& a11, const torch::Tensor& a12,
+    const torch::Tensor& a22, const torch::Tensor& b1, const torch::Tensor& b2,
+    const torch::Tensor& wu, const torch::Tensor& wd, const torch::Tensor& wl,
+    const torch::Tensor& wr, const torch::Tensor& u, const torch::Tensor& v,
+    const torch::Tensor& du0, const torch::Tensor& dv0, int64_t n_sor,
+    double alpha, double omega) {
+  static const char* names[13] = {"a11", "a12", "a22", "b1",  "b2",
+                                  "wu",  "wd",  "wl",  "wr",  "u",
+                                  "v",   "du0", "dv0"};
+  const torch::Tensor* in[13] = {&a11, &a12, &a22, &b1, &b2, &wu, &wd,
+                                 &wl,  &wr,  &u,   &v,  &du0, &dv0};
+  std::vector<torch::Tensor> fields;
+  for (int f = 0; f < 13; ++f) {
+    fields.push_back(cuda_f32(*in[f], names[f]));
+    TORCH_CHECK(fields[f].dim() == 3 && fields[f].sizes() == fields[0].sizes(),
+                names[f], " must be (B, H, W) like a11");
+  }
+  TORCH_CHECK(n_sor >= 0, "n_sor must be >= 0");
+  const int64_t B = a11.size(0), H = a11.size(1), W = a11.size(2);
+  TORCH_CHECK(B * H * W < (int64_t{1} << 31), "B*H*W must be < 2**31");
+  const c10::cuda::CUDAGuard guard(a11.device());
+  const float* ptrs[13];
+  for (int f = 0; f < 13; ++f) ptrs[f] = fields[f].data_ptr<float>();
+  auto scratch = torch::empty({4, B, H, W}, fields[0].options());
+  auto du = torch::empty({B, H, W}, fields[0].options());
+  auto dv = torch::empty({B, H, W}, fields[0].options());
+  check_launch(sor_solve_launch(ptrs, scratch.data_ptr<float>(),
+                                du.data_ptr<float>(), dv.data_ptr<float>(), B,
+                                H, W, n_sor, (float)alpha, (float)omega,
+                                (float)(1.0 - omega),
+                                at::cuda::getCurrentCUDAStream()),
+               "sor_solve");
+  return {du, dv};
+}
+
+// See ops/warp.py::warp_bilinear.
+torch::Tensor warp_bilinear(const torch::Tensor& im_in,
+                            const torch::Tensor& u_in,
+                            const torch::Tensor& v_in) {
+  const auto im = cuda_f32(im_in, "im");
+  const auto u = cuda_f32(u_in, "u"), v = cuda_f32(v_in, "v");
+  TORCH_CHECK(im.dim() == 4, "im must be (B, H, W, C)");
+  const int64_t B = im.size(0), H = im.size(1), W = im.size(2),
+                C = im.size(3);
+  TORCH_CHECK(u.dim() == 3 && u.sizes() == v.sizes() && u.size(0) == B &&
+                  u.size(1) == H && u.size(2) == W,
+              "u, v must be (B, H, W)");
+  TORCH_CHECK(B * H * W * C < (int64_t{1} << 31), "B*H*W*C must be < 2**31");
+  const c10::cuda::CUDAGuard guard(im.device());
+  auto out = torch::empty_like(im);
+  check_launch(warp_bilinear_launch(im.data_ptr<float>(), u.data_ptr<float>(),
+                                    v.data_ptr<float>(), out.data_ptr<float>(),
+                                    B, H, W, C,
+                                    at::cuda::getCurrentCUDAStream()),
+               "warp_bilinear");
+  return out;
+}
+
+// See ops/label_components.py::label_components.
+torch::Tensor label_components(const torch::Tensor& masks, int64_t max_iters) {
+  TORCH_CHECK(masks.is_cuda() && masks.dim() == 3,
+              "masks must be a (B, H, W) CUDA tensor");
+  const int64_t B = masks.size(0), H = masks.size(1), W = masks.size(2);
+  TORCH_CHECK(B * H * W < (int64_t{1} << 31), "B*H*W must be < 2**31");
+  const c10::cuda::CUDAGuard guard(masks.device());
+  const auto m = masks.ne(0).to(torch::kUInt8).contiguous();
+  auto out = torch::empty({B, H, W}, m.options().dtype(torch::kInt32));
+  torch::Tensor scratch;
+  if (label_components_smem_bytes(H, W) > kMaxSmem)
+    scratch = torch::empty({2, B, H, W}, out.options());
+  check_launch(label_components_launch(
+                   m.data_ptr<uint8_t>(), out.data_ptr<int32_t>(),
+                   scratch.defined() ? scratch.data_ptr<int32_t>() : nullptr,
+                   B, H, W, max_iters, kMaxSmem,
+                   at::cuda::getCurrentCUDAStream()),
+               "label_components");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flow_level", &flow_level);
   m.def("component_extents", &component_extents);
   m.def("nms", &nms);
+  m.def("sor_solve", &sor_solve);
+  m.def("warp_bilinear", &warp_bilinear);
+  m.def("label_components", &label_components);
 }

@@ -7,6 +7,9 @@ findContours -> boundingRect -> largest area -> reject < 15 px chain
 area. The max over pixels equals the max over components, and the argmax's
 first-maximum tie-break picks the component whose first (row-major) pixel
 comes first. Batched over a leading mask dimension.
+
+``label_components`` (kernel K6, ``ops/label_components.py``) is re-exported
+here, where the JAX package has it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .component_extents import component_extents
+from .label_components import label_components  # noqa: F401  (re-export)
 
 MIN_PART_SIZE = 15  # chalearn_iuv_to_crop.py:148
 

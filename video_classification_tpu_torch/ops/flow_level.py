@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
+from .sor_solve import _shift_zero, sor_solve_reference
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -74,13 +75,17 @@ def _grad_xy(f: torch.Tensor, y_dim: int, x_dim: int):
     return diff(x_dim), diff(y_dim)
 
 
-def _shift_zero(f: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[y, x] = f[y - dy, x - dx] over (B, H, W), zero outside."""
-    out = torch.zeros_like(f)
-    h, w = f.shape[1:]
-    out[:, max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
-        f[:, max(-dy, 0):h + min(-dy, 0), max(-dx, 0):w + min(-dx, 0)]
-    return out
+def _edge_weights(phi: torch.Tensor):
+    """(w_up, w_down, w_left, w_right) half-point smoothness weights of phi
+    (B, H, W), zero across the border."""
+    _, h, w = phi.shape
+    rows = torch.arange(h, device=phi.device).view(1, h, 1)
+    cols = torch.arange(w, device=phi.device).view(1, 1, w)
+    zero = torch.zeros((), device=phi.device)
+    return (torch.where(rows == 0, zero, 0.5 * (phi + _shift_zero(phi, 1, 0))),
+            torch.where(rows == h - 1, zero, 0.5 * (phi + _shift_zero(phi, -1, 0))),
+            torch.where(cols == 0, zero, 0.5 * (phi + _shift_zero(phi, 0, 1))),
+            torch.where(cols == w - 1, zero, 0.5 * (phi + _shift_zero(phi, 0, -1))))
 
 
 def flow_level_reference(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
@@ -92,13 +97,8 @@ def flow_level_reference(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
     dev = im1.device
     rows = torch.arange(h, device=dev).view(1, h, 1)
     cols = torch.arange(w, device=dev).view(1, 1, w)
-    red = (rows + cols) % 2 == 0
     rows_f, cols_f = rows.float(), cols.float()
     flat2 = im2.reshape(b, h * w, c)
-
-    def nbr(f, wu, wd, wl, wr):
-        return (wu * _shift_zero(f, 1, 0) + wd * _shift_zero(f, -1, 0)
-                + wl * _shift_zero(f, 0, 1) + wr * _shift_zero(f, 0, -1))
 
     u, v = u.clone(), v.clone()
     mx = torch.zeros((b,), dtype=torch.float32, device=dev)
@@ -143,27 +143,8 @@ def flow_level_reference(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
         vx, vy = _grad_xy(v, 1, 2)
         mag = ux * ux + uy * uy + vx * vx + vy * vy
         phi = 1.0 / torch.sqrt(mag + eps)
-        zero = torch.zeros_like(phi)
-        wu = torch.where(rows == 0, zero, 0.5 * (phi + _shift_zero(phi, 1, 0)))
-        wd = torch.where(rows >= h - 1, zero, 0.5 * (phi + _shift_zero(phi, -1, 0)))
-        wl = torch.where(cols == 0, zero, 0.5 * (phi + _shift_zero(phi, 0, 1)))
-        wr = torch.where(cols >= w - 1, zero, 0.5 * (phi + _shift_zero(phi, 0, -1)))
-        wsum = wu + wd + wl + wr
-        inv_u = 1.0 / (a11 + alpha * wsum)
-        inv_v = 1.0 / (a22 + alpha * wsum)
-        nu_const = nbr(u, wu, wd, wl, wr) - wsum * u
-        nv_const = nbr(v, wu, wd, wl, wr) - wsum * v
-
-        du = torch.zeros_like(u)
-        dv = torch.zeros_like(v)
-        for _s in range(n_sor):
-            for mask in (red, ~red):
-                su = nu_const + nbr(du, wu, wd, wl, wr)
-                new_du = (b1 - a12 * dv + alpha * su) * inv_u
-                du = torch.where(mask, (1 - omega) * du + omega * new_du, du)
-                sv = nv_const + nbr(dv, wu, wd, wl, wr)
-                new_dv = (b2 - a12 * du + alpha * sv) * inv_v
-                dv = torch.where(mask, (1 - omega) * dv + omega * new_dv, dv)
+        du, dv = sor_solve_reference(a11, a12, a22, b1, b2, *_edge_weights(phi),
+                                     u, v, n_sor, alpha, omega)
 
         delta = torch.maximum(du.abs().amax((1, 2)), dv.abs().amax((1, 2)))
         keep = active.view(b, 1, 1)

@@ -3,7 +3,8 @@
 Port of the JAX package's ``pipeline/device_pipeline.py``. A decoded video
 (uint8 frames on the device) plus per-sampled-frame detections become, for
 each crop stream, the (S, size, size, 21) uint8 clips the model consumes:
-optical flow (kernel K1), 2x padding, the body-aligned 21-channel canvas,
+optical flow (kernel K1 on the fused level; K5 and K4 on the per-op level
+that ``FlowParams(fuse_level="off")`` or ``n_inner != 1`` selects), 2x padding, the body-aligned 21-channel canvas,
 per-part largest-component boxes at heatmap resolution (kernel K2) scaled to
 pixels, and the cubic pad-to-square resize. All sampled frames of a clip go
 through each step as one batch.

@@ -1,20 +1,24 @@
 """Where a serving request's device time goes, on one NVIDIA GPU.
 
     python3 -m video_classification_tpu_torch.profile_serving [--requests 3]
-        [--detector {synthetic,densepose}]
+        [--detector {synthetic,densepose}] [--flow {fused,per-op}]
 
 Serves 130-frame 240x320 synthetic videos (two clip windows each) through
 the slowfast-HTAH Predictor at full width with seeded random weights, with
 the synthetic detector or the DensePose detector (depth 101, the online
-budget, bfloat16, seeded random weights): one warm-up request, then
+budget, bfloat16, seeded random weights), and the fused flow level (K1) or
+the per-op one (``FlowParams(fuse_level="off")``: K5 warp and K4 solve per
+outer): one warm-up request, then
 ``--requests`` timed ones (host clock, synchronised), then one request under
 ``torch.profiler``. Prints the mean stage seconds of the timed requests
 (detect, flow, crops, network: synchronised at each stage's ends, in
 requests of their own), the kernel time summed by
-group (K1 flow_level, K2 component_extents, K3 nms, convolutions and matrix
-products, the rest), the launch counts, the top kernels, the kernel names in
+group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
+warp_bilinear, K6 label_components, convolutions and matrix products, the
+rest), the launch counts, the top kernels, the kernel names in
 each named group, and the device's busy share: profiled kernel time over
-the unprofiled request time. Raises without CUDA.
+the unprofiled request time. Raises without CUDA, and when a kernel of the
+chosen path did not launch or a kernel of the other flow path did.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch.autograd import DeviceType
 
 from .config import load_model_cfg
 from .engine import Predictor
-from .pipeline.online import DensePoseOnlineDetector
+from .pipeline.online import DensePoseOnlineDetector, flow_params_from_cfg
 from .utils.cuda import resolve_device
 from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
@@ -41,7 +45,12 @@ PORT_KERNELS = (
                     "sor_kernel", "finish_kernel")),
     ("component_extents", ("extents_kernel",)),
     ("nms", ("nms_kernel",)),
+    ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_half_kernel")),
+    ("warp_bilinear", ("warp_bilinear_kernel",)),
+    ("label_components", ("label_components_kernel",)),
 )
+# The groups each flow path must launch; the other path's must not launch.
+FLOW_GROUPS = {"fused": ("flow_level",), "per-op": ("sor_solve", "warp_bilinear")}
 LIBRARY_KERNELS = ("conv_and_matmul", (
     "conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "winograd", "fprop",
     "cutlass"))
@@ -71,6 +80,7 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--detector", choices=("synthetic", "densepose"),
                     default="synthetic")
+    ap.add_argument("--flow", choices=tuple(FLOW_GROUPS), default="fused")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     # A root without checkpoints: the model keeps its seeded random weights.
@@ -81,7 +91,10 @@ def main(argv=None) -> int:
         detector = DensePoseOnlineDetector(
             cfg, depth=101, batch_size=int(cfg.CHALEARN.CLIP_LEN),
             allow_random_init=True, device=dev)
-    pred = Predictor(cfg, device=dev, detector=detector)
+    flow_params = None
+    if args.flow == "per-op":
+        flow_params = flow_params_from_cfg(cfg)._replace(fuse_level="off")
+    pred = Predictor(cfg, device=dev, detector=detector, flow_params=flow_params)
     rgb = coherent_motion_frames(130, 240, 320, torch.Generator().manual_seed(10))
     depth = rgb.float().mean(-1, keepdim=True).to(torch.uint8)
     rgb, depth = rgb.numpy(), depth.numpy()
@@ -116,16 +129,22 @@ def main(argv=None) -> int:
         g = groups[_group(e.key)]
         g["ms"] += _device_us(e) / 1e3
         g["launches"] += int(e.count)
-    for group, _ in PORT_KERNELS:
-        if group == "nms" and detector is None:
-            continue
+    required = FLOW_GROUPS[args.flow] + ("component_extents",)
+    if detector is not None:
+        required += ("nms",)
+    for group in required:
         if groups[group]["launches"] == 0:
             raise RuntimeError(f"no {group} kernel in the profile")
+    other = next(f for f in FLOW_GROUPS if f != args.flow)
+    for group in FLOW_GROUPS[other]:
+        if groups[group]["launches"]:
+            raise RuntimeError(f"{group} launched on the {args.flow} flow path")
     device_ms = sum(g["ms"] for g in groups.values())
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "detector": args.detector,
+        "flow": args.flow,
         "stage_mean_s": {k: round(v, 4) for k, v in stages.items()},
         "request_s": [round(w, 4) for w in walls],
         "request_mean_s": round(wall, 4),

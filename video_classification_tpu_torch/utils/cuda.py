@@ -16,7 +16,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
-SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu")
+SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
+           "sor_solve.cu", "warp.cu", "label_components.cu")
 # -fmad=false keeps every multiply and add separately rounded (no fused
 # multiply-add contraction), so a kernel performs the same float32 operations,
 # in the same order, as its plain PyTorch twin.
@@ -38,9 +39,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build():
-    """The kernel extension (``flow_level``, ``component_extents``,
-    ``nms``), compiled at first use. Raises with the compiler's output if the
-    build fails."""
+    """The kernel extension (one function per ``.cu`` file of ``SOURCES``:
+    ``flow_level``, ``component_extents``, ``nms``, ``sor_solve``,
+    ``warp_bilinear``, ``label_components``), compiled at first use. Raises
+    with the compiler's output if the build fails."""
     global _ext
     with _lock:
         if _ext is None:
