@@ -6,12 +6,15 @@ one NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. environment: the card's name and power limit;
-  2. build the CUDA kernels of utils/cuda.SOURCES from csrc/
+  2. build the CUDA kernels of utils/cuda.SOURCES from csrc/, with the
+     headers of utils/cuda.HEADERS (the SOR tiles, sor_tiles.cuh)
      (torch.utils.cpp_extension.load, sm_90a, into .torch_ext/);
-  3. K1 flow_level against its plain PyTorch version at every pyramid level
-     shape of a 240x320 frame: 4 coherent-motion pairs from a nonzero initial
-     flow, then the serving batch (101 pairs, timed) from zero flow; each
-     time uint8-encoded flow within +-1 on >= 99.9 % of values;
+  3. K1 flow_level bit-equal to its plain PyTorch version (u, v and mx) at
+     every pyramid level shape of a 240x320 frame: 4 coherent-motion pairs
+     from a nonzero initial flow, then the serving batch (101 pairs, timed)
+     from zero flow; and on random pairs at the SOR tiles' edge shapes and
+     sweep counts (EDGE_SHAPES x edge_sweeps()); each level's half-sweeps per
+     launch and device time per half-sweep;
   4. K2 component_extents against its plain version, exactly, at 56x56 and
      112x112 on synthetic-detector charts, random masks, a serpentine longer
      than H + W, and the serving batch (20 part masks, timed);
@@ -35,10 +38,11 @@ Phases, each fatal on failure:
   9. the DensePose-detector serving code at a small size (depth 50, pooler
      14, float32) on the card and on the CPU, same frames and weights:
      detections at the CPU tests' bars, then clips and scores as in 8;
- 10. K4 sor_solve against its plain version at every level shape, on the
-     per-op setup's coefficients of 4 pairs from a nonzero flow with cold
-     (zero) and warm (random) starts, then the 101-pair serving batch (timed);
-     uint8 of (u + du, v + dv) within +-1 on >= 99.9 %;
+ 10. K4 sor_solve bit-equal to its plain version at every level shape, on
+     the per-op setup's coefficients of 4 pairs from a nonzero flow with
+     cold (zero) and warm (random) starts, on random systems at the edge
+     shapes and sweep counts of 3, cold and warm, then the 101-pair serving
+     batch (timed, with the half-sweeps per launch and time per half-sweep);
  11. K5 warp_bilinear against its plain version at every level shape, on
      flows within, at and far past +-8 px, integer flows and flows across
      the border (max abs error <= 1e-6), then the 101x240x320x3 serving
@@ -72,7 +76,7 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-FLOW_FRAC, FLOW_TOL = 0.999, 1
+FLOW_FRAC = 0.999
 SCORE_ATOL = 5e-3
 
 
@@ -187,35 +191,76 @@ def bound(ops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def check_flow_level(dev, pyramids):
+# Edge shapes and sweep counts of the SOR tiles (tests/test_torch_port_sor_tiles.py):
+# 64x64 is the largest frame that runs whole, 65x64 and 64x65 the first
+# tiled ones; n_sor around the HALF_SWEEPS / 2 sweeps of one tiled launch.
+EDGE_SHAPES = ((2, 2), (7, 9), (24, 32), (57, 76), (64, 64), (65, 64), (64, 65),
+               (76, 101), (101, 135), (240, 320))
+
+
+def edge_sweeps():
+    from video_classification_tpu_torch.ops.sor_solve import HALF_SWEEPS
+
+    return (1, HALF_SWEEPS // 2 - 1, HALF_SWEEPS // 2, HALF_SWEEPS // 2 + 1, 30)
+
+
+def require_equal(what, got, want) -> float:
+    """The largest |got - want| over the tensor pairs, which must be 0 with
+    every pair bit-equal (NaNs included), else an AssertionError."""
     import torch
 
-    from video_classification_tpu_torch.ops.flow import FlowParams, encode_flow_uint8
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if err != 0.0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: max |kernel - plain| {err}, not bit-equal")
+    return err
+
+
+def sor_schedule_row(run, h: int, w: int, n_sor: int, solves: int):
+    """The SOR tiles' schedule at h x w (ops/sor_solve.py) and the device ms
+    per half-sweep: run(n) makes `solves` solves of n sweeps; the time of
+    n_sor sweeps less that of one tiled launch's (HALF_SWEEPS / 2), over the
+    half-sweeps between them."""
+    from video_classification_tpu_torch.ops.sor_solve import HALF_SWEEPS, whole_frame
+
+    whole = whole_frame(h, w)
+    per_launch = 2 * n_sor if whole else HALF_SWEEPS
+    short = HALF_SWEEPS // 2
+    diff = cuda_ms(lambda: run(n_sor)) - cuda_ms(lambda: run(short))
+    return {"whole_frame": whole, "half_sweeps_per_launch": per_launch,
+            "tile_launches_per_solve": -(-2 * n_sor // per_launch),
+            "ms_per_half_sweep": round(diff / (solves * 2 * (n_sor - short)), 5)}
+
+
+def check_flow_level(dev, pyramids):
+    """K1 bit-equal to its plain version (u, v, mx) at every level (4 pairs
+    from a nonzero flow, then the 101-pair serving batch from zero flow,
+    timed) and at the SOR tiles' edge shapes and sweep counts."""
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import FlowParams
     from video_classification_tpu_torch.ops.flow_level import (
         flow_level, flow_level_reference)
 
     p = FlowParams()
-    args = (p.n_sor, p.alpha, p.omega, p.eps, p.warp_radius, p.fuse_outer_tol)
+    tail = (p.alpha, p.omega, p.eps, p.warp_radius, p.fuse_outer_tol)
+    args = (p.n_sor, *tail)
     shapes, pyr1, pyr2, g = pyramids
 
-    worst = {"frac": 1.0, "err": 0.0}
+    worst = [0.0]
 
-    def compare(what, got, want):
-        (uk, vk, mk), (ur, vr, mr) = got, want
-        frac = within(encode_flow_uint8(uk, vk), encode_flow_uint8(ur, vr), FLOW_TOL)
-        du, dv = float((uk - ur).abs().max()), float((vk - vr).abs().max())
-        worst["frac"] = min(worst["frac"], frac)
-        worst["err"] = max(worst["err"], du, dv)
-        log(f"  K1 {what}: uint8 within +-1 {frac:.6f}, max|du| {du:.3e}, "
-            f"max|dv| {dv:.3e}, max|dmx| {float((mk - mr).abs().max()):.3e}")
-        if frac < FLOW_FRAC:
-            raise AssertionError(f"K1 {what}: {frac} < {FLOW_FRAC}")
+    def exact(what, *call):
+        worst[0] = max(worst[0], require_equal(
+            f"K1 {what}", flow_level(*call), flow_level_reference(*call)))
+        log(f"  K1 {what}: bit-equal (u, v, mx)")
 
     for lvl, (h, w) in enumerate(shapes):
         u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
-        compare(f"{h}x{w} x4, nonzero start",
-                flow_level(pyr1[lvl], pyr2[lvl], u0, v0, p.n_outer, *args),
-                flow_level_reference(pyr1[lvl], pyr2[lvl], u0, v0, p.n_outer, *args))
+        exact(f"{h}x{w} x4, nonzero start", pyr1[lvl], pyr2[lvl], u0, v0, p.n_outer, *args)
+    for h, w in EDGE_SHAPES:
+        im1, im2 = (torch.rand((2, h, w, 3), generator=g).to(dev) for _ in range(2))
+        u0, v0 = (smooth_noise(g, 2, h, w, 1.0).to(dev) for _ in range(2))
+        for n_sor in edge_sweeps():
+            exact(f"{h}x{w} x2, 2 outers, n_sor {n_sor}", im1, im2, u0, v0, 2, n_sor, *tail)
 
     # The serving batch: one clip window's 101 frame pairs per call.
     b = SERVING_PAIRS
@@ -223,22 +268,24 @@ def check_flow_level(dev, pyramids):
     for lvl, (h, w) in enumerate(shapes):
         a1, a2 = serving_batch(pyr1, lvl), serving_batch(pyr2, lvl)
         z = torch.zeros((b, h, w), device=dev)
+        exact(f"{h}x{w} x{b}, zero start", a1, a2, z, z, p.n_outer, *args)
         ms = cuda_ms(lambda: flow_level(a1, a2, z, z, p.n_outer, *args))
-        got = flow_level(a1, a2, z, z, p.n_outer, *args)
-        want, plain_ms = cuda_call_ms(
+        _, plain_ms = cuda_call_ms(
             lambda: flow_level_reference(a1, a2, z, z, p.n_outer, *args))
-        compare(f"{h}x{w} x{b}, zero start", got, want)
         outers = int(executed_outers(
             lambda k: flow_level(a1, a2, z, z, k, *args), p.n_outer).sum())
         ops = outers * h * w * flow_ops_per_pixel_outer(3, p.n_sor)
         bound_ms, bound_by = bound(ops, (2 * a1.numel() + 4 * z.numel() + b) * 4)
+        # Per half-sweep with every outer run (outer_tol -1: no early exit).
+        sched = sor_schedule_row(
+            lambda n: flow_level(a1, a2, z, z, p.n_outer, n, *tail[:-1], -1.0),
+            h, w, p.n_sor, p.n_outer)
         row = {"level": f"{h}x{w}", "pairs": b, "ms": round(ms, 4),
                "outers": outers, "bound_ms": round(bound_ms, 4),
-               "bound_by": bound_by, "plain_ms": round(plain_ms, 4)}
+               "bound_by": bound_by, "plain_ms": round(plain_ms, 4), **sched}
         levels.append(row)
         log(f"  K1 time {json.dumps(row)}")
-    return {"max_abs_err": worst["err"], "worst_within": worst["frac"],
-            "levels": levels, **levels[0]}
+    return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
 
 
 def executed_rounds(converged, cap: int) -> int:
@@ -441,61 +488,85 @@ def warp_ops_per_pixel(c: int) -> int:
     return 14 + 11 * c
 
 
+def random_system(g, b: int, h: int, w: int, warm: bool, dev):
+    """Normal equations with a coupling a12, Charbonnier-like edge weights
+    zero across the border, a flow (u, v) and a cold or random warm start,
+    as in tests/test_torch_port_sor_solve.py."""
+    import torch
+
+    from video_classification_tpu_torch.ops.flow_level import _edge_weights
+
+    def f():
+        return torch.rand((b, h, w), generator=g)
+
+    a11, a22, a12 = 0.5 + f(), 0.5 + f(), (f() - 0.5) * 0.6
+    b1, b2 = torch.randn((b, h, w), generator=g), torch.randn((b, h, w), generator=g)
+    weights = _edge_weights(0.2 + 2.0 * f())
+    u, v = (f() - 0.5) * 6.0, (f() - 0.5) * 6.0
+    du0, dv0 = ((f() - 0.5) * 0.5, (f() - 0.5) * 0.5) if warm else (0 * u, 0 * u)
+    return [t.contiguous().to(dev) for t in (a11, a12, a22, b1, b2, *weights, u, v, du0, dv0)]
+
+
 def check_sor_solve(dev, pyramids):
-    """K4 against its plain version on the per-op setup's coefficients at
-    every level: 4 pairs from a nonzero flow, cold (zero) and warm (random)
-    starts; then the 101-pair serving batch from zero flow, timed."""
+    """K4 bit-equal to its plain version on the per-op setup's coefficients
+    at every level: 4 pairs from a nonzero flow, cold (zero) and warm
+    (random) starts; on random systems at the SOR tiles' edge shapes and
+    sweep counts; then the 101-pair serving batch from zero flow, timed."""
     import torch
 
     from video_classification_tpu_torch.ops.flow import (
-        FlowParams, _normal_equations, _outer_terms, encode_flow_uint8)
+        FlowParams, _normal_equations, _outer_terms)
     from video_classification_tpu_torch.ops.sor_solve import (
         sor_solve, sor_solve_reference)
 
     p = FlowParams()
     shapes, pyr1, pyr2, g = pyramids
-    worst = {"frac": 1.0, "err": 0.0}
 
-    def solve_both(what, ix, iy, it, u, v, du0, dv0):
+    worst = [0.0]
+
+    def exact(what, args):
+        worst[0] = max(worst[0], require_equal(
+            f"K4 {what}", sor_solve(*args), sor_solve_reference(*args)))
+        log(f"  K4 {what}: bit-equal")
+
+    def level_args(ix, iy, it, u, v, du0, dv0):
         coeffs = _normal_equations(ix, iy, it, u, v, du0, dv0, p.eps)
-        args = (*coeffs, u, v, p.n_sor, p.alpha, p.omega, du0, dv0)
-        (dk, ek), (dr, er) = sor_solve(*args), sor_solve_reference(*args)
-        frac = within(encode_flow_uint8(u + dk, v + ek),
-                      encode_flow_uint8(u + dr, v + er), FLOW_TOL)
-        err = max(float((dk - dr).abs().max()), float((ek - er).abs().max()))
-        worst["frac"] = min(worst["frac"], frac)
-        worst["err"] = max(worst["err"], err)
-        log(f"  K4 {what}: uint8 within +-1 {frac:.6f}, max|d(du, dv)| {err:.3e}")
-        if frac < FLOW_FRAC:
-            raise AssertionError(f"K4 {what}: {frac} < {FLOW_FRAC}")
-        return args
+        return (*coeffs, u, v, p.n_sor, p.alpha, p.omega, du0, dv0)
 
     for lvl, (h, w) in enumerate(shapes):
         u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
         terms = _outer_terms(pyr1[lvl], pyr2[lvl], u0, v0)
         z = torch.zeros_like(u0)
-        solve_both(f"{h}x{w} x4, cold start", *terms, u0, v0, z, z)
+        exact(f"{h}x{w} x4, cold start", level_args(*terms, u0, v0, z, z))
         du0, dv0 = (smooth_noise(g, 4, h, w, 0.3).to(dev) for _ in range(2))
-        solve_both(f"{h}x{w} x4, warm start", *terms, u0, v0, du0, dv0)
+        exact(f"{h}x{w} x4, warm start", level_args(*terms, u0, v0, du0, dv0))
+    for h, w in EDGE_SHAPES:
+        for warm in (False, True):
+            t = random_system(g, 2, h, w, warm, dev)
+            for n_sor in edge_sweeps():
+                exact(f"{h}x{w} x2, {'warm' if warm else 'cold'}, n_sor {n_sor}",
+                      (*t[:11], n_sor, 0.012, 1.8, t[11], t[12]))
 
     b = SERVING_PAIRS
     levels = []
     for lvl, (h, w) in enumerate(shapes):
         z = torch.zeros((b, h, w), device=dev)
         terms = _outer_terms(serving_batch(pyr1, lvl), serving_batch(pyr2, lvl), z, z)
-        args = solve_both(f"{h}x{w} x{b}, zero flow", *terms, z, z, z, z)
+        args = level_args(*terms, z, z, z, z)
         del terms
+        exact(f"{h}x{w} x{b}, zero flow", args)
         ms = cuda_ms(lambda: sor_solve(*args))
         _, plain_ms = cuda_call_ms(lambda: sor_solve_reference(*args))
         bound_ms, bound_by = bound(b * h * w * sor_ops_per_pixel(p.n_sor),
                                    15 * b * h * w * 4)
+        sched = sor_schedule_row(lambda n: sor_solve(*args[:11], n, *args[12:]),
+                                 h, w, p.n_sor, 1)
         row = {"level": f"{h}x{w}", "pairs": b, "ms": round(ms, 4),
                "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
-               "plain_ms": round(plain_ms, 4)}
+               "plain_ms": round(plain_ms, 4), **sched}
         levels.append(row)
         log(f"  K4 time {json.dumps(row)}")
-    return {"max_abs_err": worst["err"], "worst_within": worst["frac"],
-            "levels": levels, **levels[0]}
+    return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
 
 
 def check_warp(dev, pyramids):
@@ -901,7 +972,7 @@ def main() -> int:
         return 1
     from pathlib import Path
 
-    from video_classification_tpu_torch.utils.cuda import SOURCES, build
+    from video_classification_tpu_torch.utils.cuda import HEADERS, SOURCES, build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -917,8 +988,8 @@ def main() -> int:
     build()
     kernel_sources = [k for k in SOURCES if k.endswith(".cu")]
     log(f"[2] built the {len(kernel_sources)} kernels of utils/cuda.SOURCES "
-        f"({', '.join(kernel_sources)}; torch.utils.cpp_extension.load) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"({', '.join(kernel_sources)}; headers {', '.join(HEADERS)}; "
+        f"torch.utils.cpp_extension.load) in {time.perf_counter() - t0:.2f} s")
 
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents

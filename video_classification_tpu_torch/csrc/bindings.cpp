@@ -24,6 +24,7 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
                               float omega, float one_m_omega, float eps,
                               int r_cap, float outer_tol, cudaStream_t st);
 int flow_level_num_fields();
+void sor_tiles_schedule(int out[3]);
 cudaError_t component_extents_launch(const uint8_t* masks, int32_t* mnr,
                                      int32_t* mxr, int32_t* mnc, int32_t* mxc,
                                      int B, int H, int W, int max_iters,
@@ -53,6 +54,18 @@ void check_launch(cudaError_t err, const char* what) {
   TORCH_CHECK(err == cudaSuccess, what, ": ", cudaGetErrorString(err));
 }
 
+// The SOR tiles' schedule the caller expects (ops/sor_solve.py::SCHEDULE)
+// must be the one compiled into csrc/sor_tiles.cuh.
+void check_schedule(const std::vector<int64_t>& schedule, const char* what) {
+  int compiled[3];
+  sor_tiles_schedule(compiled);
+  TORCH_CHECK(schedule.size() == 3 && schedule[0] == compiled[0] &&
+                  schedule[1] == compiled[1] && schedule[2] == compiled[2],
+              what, ": SOR schedule ", c10::IntArrayRef(schedule),
+              " differs from the compiled (", compiled[0], ", ", compiled[1],
+              ", ", compiled[2], ")");
+}
+
 torch::Tensor cuda_f32(const torch::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_cuda() && t.scalar_type() == torch::kFloat32, name,
               " must be a float32 CUDA tensor");
@@ -64,7 +77,8 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
     const torch::Tensor& im1_in, const torch::Tensor& im2_in,
     const torch::Tensor& u, const torch::Tensor& v, int64_t n_outer,
     int64_t n_sor, double alpha, double omega, double eps, int64_t r_cap,
-    double outer_tol) {
+    double outer_tol, const std::vector<int64_t>& schedule) {
+  check_schedule(schedule, "flow_level");
   const auto im1 = cuda_f32(im1_in, "im1"), im2 = cuda_f32(im2_in, "im2");
   TORCH_CHECK(im1.dim() == 4 && im2.sizes() == im1.sizes(),
               "im1, im2 must be (B, H, W, C) alike");
@@ -74,6 +88,7 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
                   u.size(1) == H && u.size(2) == W,
               "u, v must be (B, H, W)");
   TORCH_CHECK(B * H * W * C < (int64_t{1} << 31), "B*H*W*C must be < 2**31");
+  TORCH_CHECK(n_sor >= 0, "flow_level: n_sor must be >= 0");
   const c10::cuda::CUDAGuard guard(im1.device());
   auto u_out = cuda_f32(u, "u").clone();
   auto v_out = cuda_f32(v, "v").clone();
@@ -151,7 +166,8 @@ std::vector<torch::Tensor> sor_solve(
     const torch::Tensor& wu, const torch::Tensor& wd, const torch::Tensor& wl,
     const torch::Tensor& wr, const torch::Tensor& u, const torch::Tensor& v,
     const torch::Tensor& du0, const torch::Tensor& dv0, int64_t n_sor,
-    double alpha, double omega) {
+    double alpha, double omega, const std::vector<int64_t>& schedule) {
+  check_schedule(schedule, "sor_solve");
   static const char* names[13] = {"a11", "a12", "a22", "b1",  "b2",
                                   "wu",  "wd",  "wl",  "wr",  "u",
                                   "v",   "du0", "dv0"};
@@ -169,7 +185,7 @@ std::vector<torch::Tensor> sor_solve(
   const c10::cuda::CUDAGuard guard(a11.device());
   const float* ptrs[13];
   for (int f = 0; f < 13; ++f) ptrs[f] = fields[f].data_ptr<float>();
-  auto scratch = torch::empty({4, B, H, W}, fields[0].options());
+  auto scratch = torch::empty({6, B, H, W}, fields[0].options());
   auto du = torch::empty({B, H, W}, fields[0].options());
   auto dv = torch::empty({B, H, W}, fields[0].options());
   check_launch(sor_solve_launch(ptrs, scratch.data_ptr<float>(),

@@ -17,31 +17,37 @@
 // Design. The TPU kernel keeps a whole level resident in VMEM for all outers
 // and sweeps; one 240x320 f32 field (300 KB) already exceeds the 227 KB of
 // shared memory of one H100 block, so here the level is a host-side sequence
-// of per-pixel kernels over all B pairs: per outer one warp+phi kernel, one
-// coefficient kernel, 2*n_sor half-sweeps (a thread updates du and then dv
-// at one pixel of the current colour, reading only the other colour's
-// neighbours, so the update is race-free and exact), and one finish kernel
-// that adds the increments and reduces max|du,dv| and max|flow| per pair
-// with atomics. Converged pairs are switched off by per-pair flags that
-// every kernel reads from device memory, so a level never syncs the host.
+// of kernels over all B pairs: per outer one warp+phi kernel, one
+// coefficient kernel, the SOR half-sweeps in on-chip tiles (sor_tiles.cuh,
+// shared with sor_solve.cu: 12 half-sweeps per launch on 64x64 windows, the
+// read-only fields in registers, (du, dv) in shared memory and ping-pong
+// buffers in device memory; all half-sweeps in one launch for a frame of at
+// most 64x64), and one finish kernel that adds the increments and reduces
+// max|du,dv| and max|flow| per pair with atomics. Converged pairs are
+// switched off by per-pair flags that every kernel reads from device memory,
+// so a level never syncs the host.
 //
-// Bound. Each half-sweep streams ~15 fields of the half of the pixels it
-// updates through device memory (the SOR state of a 101-pair 240x320 level
-// is ~450 MB, far above the 50 MB L2), so the kernel is bound by memory
-// traffic of its scratch fields, not by its ~1e3 f32 operations per pixel per
-// outer; fusing sweeps in shared-memory tiles is the next step.
+// Bound. The kernel's bound is its ~1e3 f32 operations per pixel per outer
+// (inputs and outputs are a few fields). What it moves is the SOR state:
+// each tiled launch loads 13 fields over 2.56x the frame once per 12
+// half-sweeps at 240x320 (before: 15 fields per half-sweep), and the
+// half-sweeps read 12 shared-memory words per updated pixel.
 //
 // Built with -fmad=false: every product and sum is rounded as in the plain
 // PyTorch twin (ops/flow_level.py::flow_level_reference), in the same order.
 
 #include <cuda_runtime.h>
 
+#include "sor_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-enum Field { A12, B1, B2, WU, WD, WL, WR, INVU, INVV, NUC, NVC, DU, DV, PHI,
-             kNumFields };
+// A12 .. NVC in sor_tiles::Field's order; (DU, DV) and (DU2, DV2) are the
+// SOR's ping-pong buffers.
+enum Field { A12, B1, B2, WU, WD, WL, WR, INVU, INVV, NUC, NVC, DU, DV, DU2,
+             DV2, PHI, kNumFields };
 
 struct Level {
   const float* im1;   // (B, H, W, C)
@@ -152,8 +158,10 @@ __global__ void __launch_bounds__(kThreads) warp_phi_kernel(Level L, int k) {
   field(L, PHI)[i] = 1.f / sqrtf(mag + L.eps);
 }
 
-// IRLS data terms, edge weights, hoisted reciprocals and constant terms.
-__global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k) {
+// IRLS data terms, edge weights, hoisted reciprocals and constant terms, and
+// the SOR's zero start in the field pair (zero, zero + 1).
+__global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k,
+                                                         int zero) {
   const int b = blockIdx.y, hw = L.H * L.W, H = L.H, W = L.W, C = L.C;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= hw || !active(L, k, b)) return;
@@ -211,44 +219,24 @@ __global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k) {
   field(L, INVV)[i] = 1.f / (a22 + L.alpha * wsum);
   field(L, NUC)[i] = nu - wsum * u[p];
   field(L, NVC)[i] = nv - wsum * v[p];
-  field(L, DU)[i] = 0.f;
-  field(L, DV)[i] = 0.f;
+  field(L, zero)[i] = 0.f;
+  field(L, zero + 1)[i] = 0.f;
 }
 
-// One half-sweep: the pixels with (y + x) % 2 == colour.
-__global__ void __launch_bounds__(kThreads) sor_kernel(Level L, int k,
-                                                       int colour) {
-  const int b = blockIdx.y, H = L.H, W = L.W;
-  const int half = (W + 1) / 2;
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  const int y = s / half;
-  const int x = 2 * (s - y * half) + ((y + colour) & 1);
-  if (y >= H || x >= W || !active(L, k, b)) return;
-  const int p = y * W + x;
-  const size_t i = (size_t)b * H * W + p;
-  float* du = field(L, DU) + (size_t)b * H * W;
-  float* dv = field(L, DV) + (size_t)b * H * W;
-  const float wu = field(L, WU)[i], wd = field(L, WD)[i];
-  const float wl = field(L, WL)[i], wr = field(L, WR)[i];
-  const float a12 = field(L, A12)[i];
+struct ActivePairs {
+  Level L;
+  int k;
+  __device__ bool operator()(int b) const { return active(L, k, b); }
+};
 
-  const float du_c = du[p], dv_c = dv[p];
-  const float du_up = y > 0 ? du[p - W] : 0.f, du_dn = y < H - 1 ? du[p + W] : 0.f;
-  const float du_lf = x > 0 ? du[p - 1] : 0.f, du_rt = x < W - 1 ? du[p + 1] : 0.f;
-  const float su = field(L, NUC)[i] +
-                   (wu * du_up + wd * du_dn + wl * du_lf + wr * du_rt);
-  const float new_du = (field(L, B1)[i] - a12 * dv_c + L.alpha * su) *
-                       field(L, INVU)[i];
-  const float du_n = L.one_m_omega * du_c + L.omega * new_du;
-
-  const float dv_up = y > 0 ? dv[p - W] : 0.f, dv_dn = y < H - 1 ? dv[p + W] : 0.f;
-  const float dv_lf = x > 0 ? dv[p - 1] : 0.f, dv_rt = x < W - 1 ? dv[p + 1] : 0.f;
-  const float sv = field(L, NVC)[i] +
-                   (wu * dv_up + wd * dv_dn + wl * dv_lf + wr * dv_rt);
-  const float new_dv = (field(L, B2)[i] - a12 * du_n + L.alpha * sv) *
-                       field(L, INVV)[i];
-  du[p] = du_n;
-  dv[p] = L.one_m_omega * dv_c + L.omega * new_dv;
+// n SOR half-sweeps of the tiles of the pairs that run outer k, from F's
+// (du, dv) into (du, dv).
+__global__ void __launch_bounds__(sor_tiles::kThreads, 1)
+flow_level_sor_tile_kernel(Level L, int k, sor_tiles::Fields F, float* du,
+                           float* dv, sor_tiles::Plan P, int n) {
+  extern __shared__ float smem[];
+  sor_tiles::run_tiles(smem, F, du, dv, P, L.B, L.H, L.W, n, L.alpha, L.omega,
+                       L.one_m_omega, ActivePairs{L, k});
 }
 
 // u += du, v += dv; per-pair max|du, dv| (the early-exit test) and the next
@@ -287,21 +275,41 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
                               int C, int n_outer, int n_sor, float alpha,
                               float omega, float one_m_omega, float eps,
                               int r_cap, float outer_tol, cudaStream_t st) {
-  if (B <= 0 || H < 2 || W < 2 || C <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H < 2 || W < 2 || C <= 0 || n_sor < 0)
+    return cudaErrorInvalidValue;
   const Level L{im1, im2, u, v, mx, fields, warped, red, B, H, W, C, n_outer,
                 r_cap, alpha, omega, one_m_omega, eps, outer_tol};
+  const size_t n = (size_t)B * H * W;
   const dim3 px_grid((H * W + kThreads - 1) / kThreads, B);
-  const dim3 sor_grid((H * ((W + 1) / 2) + kThreads - 1) / kThreads, B);
-  cudaError_t err;
+  const int n_half = 2 * n_sor;
+  const sor_tiles::Plan P = sor_tiles::plan(H, W, n_half);
+  const int tile_grid = sor_tiles::grid_blocks(P, B);
+  // The SOR starts from zeros in the pair that is not its first destination
+  // and ends in (DU, DV), where finish_kernel reads.
+  const int zero = sor_tiles::num_launches(P, n_half) % 2 ? DU2 : DU;
+  sor_tiles::Fields F;
+  for (int f = A12; f <= NVC; ++f) F.f[f] = fields + f * n;
+  cudaError_t err = cudaFuncSetAttribute(
+      flow_level_sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sor_tiles::kSmemBytes);
+  if (err != cudaSuccess) return err;
   maxflow_init_kernel<<<px_grid, kThreads, 0, st>>>(L);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   for (int k = 0; k < n_outer; ++k) {
     warp_phi_kernel<<<px_grid, kThreads, 0, st>>>(L, k);
-    coeff_kernel<<<px_grid, kThreads, 0, st>>>(L, k);
-    for (int s = 0; s < n_sor; ++s) {
-      sor_kernel<<<sor_grid, kThreads, 0, st>>>(L, k, 0);
-      sor_kernel<<<sor_grid, kThreads, 0, st>>>(L, k, 1);
-    }
+    coeff_kernel<<<px_grid, kThreads, 0, st>>>(L, k, zero);
+    err = sor_tiles::run_schedule(
+        P, n_half, fields + zero * n, fields + (zero + 1) * n, fields + DU * n,
+        fields + DV * n, fields + DU2 * n, fields + DV2 * n,
+        [&](const float* sdu, const float* sdv, float* ddu, float* ddv,
+            int count) {
+          F.f[sor_tiles::DU] = sdu;
+          F.f[sor_tiles::DV] = sdv;
+          flow_level_sor_tile_kernel<<<tile_grid, sor_tiles::kThreads,
+                                       sor_tiles::kSmemBytes, st>>>(
+              L, k, F, ddu, ddv, P, count);
+        });
+    if (err != cudaSuccess) return err;
     finish_kernel<<<px_grid, kThreads, 0, st>>>(L, k);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }

@@ -13,40 +13,42 @@
 // sequence of half-sweeps.
 //
 // Design. The TPU kernel keeps one pair's 13 fields in VMEM (~4 MB at
-// 240x320); one 240x320 f32 field (300 KB) already exceeds the 227 KB of
-// shared memory of one H100 block. So, as in flow_level.cu, a solve is a
-// host-side launch sequence over all pairs: one setup kernel writes the
-// hoisted fields to scratch and the warm start to (du, dv), then 2 * n_sor
-// half-sweep launches. A half-sweep thread updates one pixel of its colour in
-// place, reading only the other colour's neighbours, so the in-place update
-// is exactly the twin's Jacobi update of that colour.
+// 240x320), more than the 227 KB of shared memory of one H100 block. A setup
+// launch writes the hoisted fields to scratch; the half-sweeps then run in
+// on-chip tiles (sor_tiles.cuh): each tiled launch loads 64x64 windows of the
+// 13 fields once, runs 12 half-sweeps with the 11 read-only fields in
+// registers and (du, dv) in shared memory, and writes the 40x40 interiors,
+// reading (du, dv) from one buffer and writing the other; persistent blocks
+// stage the next tile's fields while the current one computes. A frame of
+// at most 64x64 (43x57 and below) is one tile, all half-sweeps in one
+// launch. A 30-sweep solve is 1 + 5 launches at 240x320 (48 tiles x 101
+// pairs each) and 2 launches at 43x57.
 //
-// Bound. Each half-sweep streams ~15 fields of the half of the pixels it
-// updates through device memory (a 101-pair 240x320 solve holds ~470 MB of
-// fields, far above the 50 MB L2), so the solve is bound by that traffic,
-// not by its ~32 f32 operations per pixel per sweep; fusing sweeps in
-// shared-memory tiles is the next step.
+// Bound. The bytes bound reads the 13 inputs once and writes (du, dv) once;
+// what the half-sweeps move is the tiles' loads, 13 fields over 2.56x the
+// frame per 12 half-sweeps at 240x320 (before: 15 fields per half-sweep), and
+// 12 shared-memory words per updated pixel.
 //
 // Built with -fmad=false: every product and sum is rounded as in the plain
 // PyTorch twin (ops/sor_solve.py::sor_solve_reference), in the same order.
 
 #include <cuda_runtime.h>
 
+#include "sor_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Solve {
-  const float *a11, *a12, *a22, *b1, *b2, *wu, *wd, *wl, *wr, *u, *v;
-  const float *du0, *dv0;
+struct Setup {
+  const float *a11, *a22, *wu, *wd, *wl, *wr, *u, *v;
   float *inv_u, *inv_v, *nuc, *nvc;  // scratch, (B, H, W) each
-  float *du, *dv;                    // outputs, (B, H, W)
-  int B, H, W;
-  float alpha, omega, one_m_omega;
+  int H, W;
+  float alpha;
 };
 
-// Hoisted fields and the warm start.
-__global__ void __launch_bounds__(kThreads) sor_solve_setup_kernel(Solve S) {
+// The hoisted fields.
+__global__ void __launch_bounds__(kThreads) sor_solve_setup_kernel(Setup S) {
   const int b = blockIdx.y, H = S.H, W = S.W, hw = H * W;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= hw) return;
@@ -66,65 +68,81 @@ __global__ void __launch_bounds__(kThreads) sor_solve_setup_kernel(Solve S) {
   S.inv_v[i] = 1.f / (S.a22[i] + S.alpha * wsum);
   S.nuc[i] = nu - wsum * u[p];
   S.nvc[i] = nv - wsum * v[p];
-  S.du[i] = S.du0[i];
-  S.dv[i] = S.dv0[i];
 }
 
-// One half-sweep: the pixels with (y + x) % 2 == colour.
-__global__ void __launch_bounds__(kThreads)
-sor_solve_half_kernel(Solve S, int colour) {
-  const int b = blockIdx.y, H = S.H, W = S.W;
-  const int half = (W + 1) / 2;
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  const int y = s / half;
-  const int x = 2 * (s - y * half) + ((y + colour) & 1);
-  if (y >= H || x >= W) return;
-  const int p = y * W + x;
-  const size_t base = (size_t)b * H * W, i = base + p;
-  float* du = S.du + base;
-  float* dv = S.dv + base;
-  const float wu = S.wu[i], wd = S.wd[i], wl = S.wl[i], wr = S.wr[i];
-  const float a12 = S.a12[i];
+struct AllPairs {
+  __device__ bool operator()(int) const { return true; }
+};
 
-  const float du_c = du[p], dv_c = dv[p];
-  const float du_up = y > 0 ? du[p - W] : 0.f, du_dn = y < H - 1 ? du[p + W] : 0.f;
-  const float du_lf = x > 0 ? du[p - 1] : 0.f, du_rt = x < W - 1 ? du[p + 1] : 0.f;
-  const float su = S.nuc[i] + (wu * du_up + wd * du_dn + wl * du_lf + wr * du_rt);
-  const float new_du = (S.b1[i] - a12 * dv_c + S.alpha * su) * S.inv_u[i];
-  const float du_n = S.one_m_omega * du_c + S.omega * new_du;
-
-  const float dv_up = y > 0 ? dv[p - W] : 0.f, dv_dn = y < H - 1 ? dv[p + W] : 0.f;
-  const float dv_lf = x > 0 ? dv[p - 1] : 0.f, dv_rt = x < W - 1 ? dv[p + 1] : 0.f;
-  const float sv = S.nvc[i] + (wu * dv_up + wd * dv_dn + wl * dv_lf + wr * dv_rt);
-  const float new_dv = (S.b2[i] - a12 * du_n + S.alpha * sv) * S.inv_v[i];
-  du[p] = du_n;
-  dv[p] = S.one_m_omega * dv_c + S.omega * new_dv;
+// n half-sweeps of every tile of the batch.
+__global__ void __launch_bounds__(sor_tiles::kThreads, 1)
+sor_solve_tile_kernel(sor_tiles::Fields F, float* du, float* dv,
+                      sor_tiles::Plan P, int B, int H, int W, int n,
+                      float alpha, float omega, float one_m_omega) {
+  extern __shared__ float smem[];
+  sor_tiles::run_tiles(smem, F, du, dv, P, B, H, W, n, alpha, omega,
+                       one_m_omega, AllPairs{});
 }
 
 }  // namespace
 
+// The schedule compiled into sor_tiles.cuh: tile rows, tile columns,
+// half-sweeps per tiled launch.
+void sor_tiles_schedule(int out[3]) {
+  out[0] = sor_tiles::kTileH;
+  out[1] = sor_tiles::kTileW;
+  out[2] = sor_tiles::kHalfSweeps;
+}
+
 // Launches the solve on `stream`. fields: the 13 inputs (a11, a12, a22, b1,
 // b2, wu, wd, wl, wr, u, v, du0, dv0), each (B, H, W) contiguous float32;
-// scratch: 4 x (B, H, W) floats; du, dv: the (B, H, W) outputs.
+// scratch: 6 x (B, H, W) floats (4 hoisted fields, 2 ping-pong buffers);
+// du, dv: the (B, H, W) outputs.
 cudaError_t sor_solve_launch(const float* const* fields, float* scratch,
                              float* du, float* dv, int B, int H, int W,
                              int n_sor, float alpha, float omega,
                              float one_m_omega, cudaStream_t st) {
-  if (B <= 0 || H <= 0 || W <= 0 || n_sor < 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || W <= 0 || n_sor < 0)
+    return cudaErrorInvalidValue;
   const size_t n = (size_t)B * H * W;
-  const Solve S{fields[0], fields[1], fields[2], fields[3], fields[4],
-                fields[5], fields[6], fields[7], fields[8], fields[9],
-                fields[10], fields[11], fields[12],
-                scratch, scratch + n, scratch + 2 * n, scratch + 3 * n,
-                du, dv, B, H, W, alpha, omega, one_m_omega};
-  const dim3 px_grid((H * W + kThreads - 1) / kThreads, B);
-  const dim3 sor_grid((H * ((W + 1) / 2) + kThreads - 1) / kThreads, B);
-  sor_solve_setup_kernel<<<px_grid, kThreads, 0, st>>>(S);
+  float* inv_u = scratch;
+  float* inv_v = scratch + n;
+  float* nuc = scratch + 2 * n;
+  float* nvc = scratch + 3 * n;
+  const int n_half = 2 * n_sor;
+  if (n_half == 0) {
+    cudaError_t err = cudaMemcpyAsync(du, fields[11], n * sizeof(float),
+                                      cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return err;
+    return cudaMemcpyAsync(dv, fields[12], n * sizeof(float),
+                           cudaMemcpyDeviceToDevice, st);
+  }
+  const Setup S{fields[0], fields[2], fields[5], fields[6], fields[7],
+                fields[8], fields[9], fields[10], inv_u, inv_v, nuc, nvc,
+                H, W, alpha};
+  sor_solve_setup_kernel<<<dim3((H * W + kThreads - 1) / kThreads, B),
+                           kThreads, 0, st>>>(S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  for (int s = 0; s < n_sor; ++s) {
-    sor_solve_half_kernel<<<sor_grid, kThreads, 0, st>>>(S, 0);
-    sor_solve_half_kernel<<<sor_grid, kThreads, 0, st>>>(S, 1);
-  }
-  return cudaGetLastError();
+
+  const sor_tiles::Plan P = sor_tiles::plan(H, W, n_half);
+  err = cudaFuncSetAttribute(sor_solve_tile_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sor_tiles::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  sor_tiles::Fields F{{fields[1], fields[3], fields[4], fields[5], fields[6],
+                       fields[7], fields[8], inv_u, inv_v, nuc, nvc, nullptr,
+                       nullptr}};
+  const int grid = sor_tiles::grid_blocks(P, B);
+  return sor_tiles::run_schedule(
+      P, n_half, fields[11], fields[12], du, dv, scratch + 4 * n,
+      scratch + 5 * n,
+      [&](const float* sdu, const float* sdv, float* ddu, float* ddv,
+          int count) {
+        F.f[sor_tiles::DU] = sdu;
+        F.f[sor_tiles::DV] = sdv;
+        sor_solve_tile_kernel<<<grid, sor_tiles::kThreads,
+                                sor_tiles::kSmemBytes, st>>>(
+            F, ddu, ddv, P, B, H, W, count, alpha, omega, one_m_omega);
+      });
 }

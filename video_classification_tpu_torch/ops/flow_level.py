@@ -19,7 +19,8 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
-from .sor_solve import _shift_zero, sor_solve_reference
+from .sor_solve import (SCHEDULE, _shift_zero, check_tileable,
+                        sor_solve_reference)
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -54,9 +55,10 @@ def flow_level(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
     if im1.device.type == "cpu":
         return flow_level_reference(im1, im2, u, v, n_outer, n_sor, alpha,
                                     omega, eps, r_cap, outer_tol)
+    check_tileable(*u.shape)
     out = cuda.build().flow_level(im1, im2, u, v, int(n_outer), int(n_sor),
                                   float(alpha), float(omega), float(eps),
-                                  int(r_cap), float(outer_tol))
+                                  int(r_cap), float(outer_tol), SCHEDULE)
     flow_level.launches += 1
     return out
 

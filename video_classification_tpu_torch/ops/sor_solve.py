@@ -7,7 +7,10 @@ equations [a11 a12; a12 a22] with the 4-neighbour smoothness term of
 half-point weights (wu, wd, wl, wr) on the total flow (u + du, v + dv),
 warm-started from (du0, dv0). Red pixels ((r + c) % 2 == 0) go first; each
 half-sweep updates du on its colour, then dv with the new du. See
-``csrc/sor_solve.cu`` for the design on Hopper.
+``csrc/sor_solve.cu`` and ``csrc/sor_tiles.cuh`` for the design on Hopper:
+the half-sweeps run in on-chip tiles, ``HALF_SWEEPS`` per launch on windows
+of at most ``TILE`` (interior plus a halo of ``HALF_SWEEPS`` pixels), or all
+in one launch on a frame that fits one window.
 
 ``sor_solve_reference`` performs the kernel's float32 operations in the
 kernel's order with plain tensor ops, as the JAX package's XLA loop
@@ -26,6 +29,26 @@ from ..utils import cuda
 
 FIELDS = ("a11", "a12", "a22", "b1", "b2", "wu", "wd", "wl", "wr", "u", "v",
           "du0", "dv0")
+
+# The SOR tiles' schedule, compiled into csrc/sor_tiles.cuh; the wrappers of
+# K4 and K1 pass it to the bindings, which refuse numbers that differ. A
+# frame of at most TILE is one tile with no halo (the whole-frame mode).
+TILE = (64, 64)   # a window's rows and columns, halo included
+HALF_SWEEPS = 12  # half-sweeps per tiled launch, and the halo
+SCHEDULE = (*TILE, HALF_SWEEPS)
+
+
+def whole_frame(h: int, w: int) -> bool:
+    """Whether an h x w frame runs as one tile, all half-sweeps at once."""
+    return h <= TILE[0] and w <= TILE[1]
+
+
+def check_tileable(b: int, h: int, w: int) -> None:
+    """Raise unless the kernels' tiles cover a (b, h, w) batch: an empty
+    batch or frame has none."""
+    if not (b >= 1 and h >= 1 and w >= 1):
+        raise ValueError(f"the SOR tiles cannot cover a {(b, h, w)} batch: "
+                         "need B, H, W >= 1")
 
 
 def _check_inputs(fields) -> None:
@@ -58,8 +81,9 @@ def sor_solve(a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v, n_sor: int,
     if a11.device.type == "cpu":
         return sor_solve_reference(*fields[:11], n_sor, alpha, omega,
                                    du0, dv0)
+    check_tileable(*a11.shape)
     du, dv = cuda.build().sor_solve(*fields, int(n_sor), float(alpha),
-                                    float(omega))
+                                    float(omega), SCHEDULE)
     sor_solve.launches += 1
     return du, dv
 

@@ -17,8 +17,9 @@ group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
 warp_bilinear, K6 label_components, convolutions and matrix products, the
 rest), the launch counts, the top kernels, the kernel names in
 each named group, and the device's busy share: profiled kernel time over
-the unprofiled request time. Raises without CUDA, and when a kernel of the
-chosen path did not launch or a kernel of the other flow path did.
+the unprofiled request time. Raises without CUDA, when a kernel of the
+chosen path did not launch or a kernel of the other flow path did, and when
+a port kernel is in no group of ``PORT_KERNELS``.
 """
 
 from __future__ import annotations
@@ -39,13 +40,15 @@ from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
 
 # The port's kernels are matched by their full names' prefix (they live in
-# an anonymous namespace of csrc/*.cu), the libraries' by substring.
+# an anonymous namespace of csrc/*.cu), the libraries' by substring. A kernel
+# of that namespace that no group names is an error, not "other".
+PORT_PREFIX = "(anonymous namespace)::"
 PORT_KERNELS = (
     ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
-                    "sor_kernel", "finish_kernel")),
+                    "flow_level_sor_tile_kernel", "finish_kernel")),
     ("component_extents", ("extents_kernel",)),
     ("nms", ("nms_kernel",)),
-    ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_half_kernel")),
+    ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_tile_kernel")),
     ("warp_bilinear", ("warp_bilinear_kernel",)),
     ("label_components", ("label_components_kernel",)),
 )
@@ -59,8 +62,10 @@ GROUPS = tuple(g for g, _ in PORT_KERNELS) + (LIBRARY_KERNELS[0], "other")
 
 def _group(name: str) -> str:
     for group, kernels in PORT_KERNELS:
-        if any(name.startswith(f"(anonymous namespace)::{k}(") for k in kernels):
+        if any(name.startswith(f"{PORT_PREFIX}{k}(") for k in kernels):
             return group
+    if name.startswith(PORT_PREFIX):
+        raise RuntimeError(f"port kernel {name!r} is in no group of PORT_KERNELS")
     low = name.lower()
     if any(k in low for k in LIBRARY_KERNELS[1]):
         return LIBRARY_KERNELS[0]

@@ -9,6 +9,7 @@ the checkout; nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import hashlib
 import threading
 from pathlib import Path
 
@@ -18,10 +19,23 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
 SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
            "sor_solve.cu", "warp.cu", "label_components.cu")
+# Headers the .cu files include (sor_solve.cu and flow_level.cu share the
+# SOR tiles). ``load`` hashes only the sources, so ``cuda_flags`` carries a
+# digest of the headers: editing one changes the flags and rebuilds.
+HEADERS = ("sor_tiles.cuh",)
 # -fmad=false keeps every multiply and add separately rounded (no fused
 # multiply-add contraction), so a kernel performs the same float32 operations,
 # in the same order, as its plain PyTorch twin.
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false"]
+
+
+def cuda_flags(csrc: Path = CSRC) -> list:
+    """``CUDA_FLAGS`` plus the headers' digest, ``-DVCT_HEADERS=<sha1>``."""
+    digest = hashlib.sha1()
+    for h in HEADERS:
+        digest.update((csrc / h).read_bytes())
+    return CUDA_FLAGS + [f"-DVCT_HEADERS={digest.hexdigest()[:16]}"]
+
 
 _ext = None
 _lock = threading.Lock()
@@ -51,6 +65,6 @@ def build():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             _ext = load(name="vct_kernels",
                         sources=[str(CSRC / s) for s in SOURCES],
-                        extra_cflags=["-O2"], extra_cuda_cflags=CUDA_FLAGS,
+                        extra_cflags=["-O2"], extra_cuda_cflags=cuda_flags(),
                         build_directory=str(BUILD_DIR))
         return _ext
