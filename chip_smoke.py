@@ -17,11 +17,20 @@ Phases, each fatal on failure:
      launch and device time per half-sweep;
   4. K2 component_extents against its plain version, exactly, at 56x56 and
      112x112 on synthetic-detector charts, random masks, a serpentine longer
-     than H + W, and the serving batch (20 part masks, timed);
+     than H + W; on the strip-boundary shapes (1xW, Hx1 up to 255, 13x17,
+     57x76, 112x112, 255x255) with random, sparse, empty, chart and
+     horizontal and vertical serpentine masks at the iteration caps around
+     the iterations per halo exchange; then the serving batches, timed,
+     with each mask's executed iterations: the synthetic charts at 56x56
+     and 112x112 and the CropHTAH masks of the DensePose detector's own
+     112x112 charts from one full-width detector run on one clip's 20
+     padded frames (the kernel's row);
   5. K3 nms against its plain version, exactly (indices and mask): the CPU
-     test cases, N = 5000 with max_out 100, and the serving batches captured
-     from the full-width detector's run on one clip's 20 padded frames,
-     (20, 1264) at 0.7 / 64 and (20, 64) at 0.5 / 8 (timed);
+     test cases, N on both sides of one and two 64-candidate chunks, max_out
+     reached inside a chunk, a chunk the kept boxes suppress entirely, ties
+     with +-0.0, -inf and NEG, N = 5000 and 8192, and the serving batches
+     captured from the same detector run, (20, 1264) at 0.7 / 64 and
+     (20, 64) at 0.5 / 8 (timed);
   6. the serving path at full width with the synthetic detector:
      slowfast-HTAH (SlowFast-R50, 249 classes, 192 px crops, CLIP_LEN 20)
      with seeded random weights serves three 130-frame 240x320 synthetic
@@ -288,6 +297,29 @@ def check_flow_level(dev, pyramids):
     return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
 
 
+def executed_rounds_per_mask(reference, masks, cap: int):
+    """Rounds each mask's propagation executes when it stops at its own
+    fixed point (``executed_rounds`` per mask): reference(masks, k) runs k
+    rounds at most; the masks sharing a bisection step share its call."""
+    import torch
+
+    want = reference(masks, cap)
+    lo, hi = [0] * masks.shape[0], [cap] * masks.shape[0]
+    while any(a < b for a, b in zip(lo, hi)):
+        steps = {}
+        for i, (a, b) in enumerate(zip(lo, hi)):
+            if a < b:
+                steps.setdefault((a + b) // 2, []).append(i)
+        for mid, idx in steps.items():
+            got = reference(masks[idx], mid)
+            for j, i in enumerate(idx):
+                if all(torch.equal(g[j], w[i]) for g, w in zip(got, want)):
+                    hi[i] = mid
+                else:
+                    lo[i] = mid + 1
+    return [min(a + 1, cap) for a in lo]
+
+
 def executed_rounds(converged, cap: int) -> int:
     """Rounds a propagation that stops at its fixed point executes: the
     fewest k with converged(k), found by bisection, plus the last round,
@@ -312,22 +344,54 @@ def serpentine(h: int, w: int):
     return m
 
 
-def check_component_extents(dev):
+def strip_masks(kind: str, h: int, w: int, g):
+    """The K2 strip-boundary masks of tests/test_torch_port_extents_cluster.py:
+    random, sparse, empty, chart and serpentines across every column and
+    down every row (so across every CTA's strip)."""
+    import torch
+
+    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
+    from video_classification_tpu_torch.ops.components import part_mask
+    from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
+
+    if kind == "random":
+        return torch.rand((h, w), generator=g) < 0.45
+    if kind == "sparse":
+        return torch.rand((h, w), generator=g) < 0.15
+    if kind == "empty":
+        return torch.zeros((h, w), dtype=torch.bool)
+    if kind == "serpentine":
+        return serpentine(h, w)
+    if kind == "serpentine_vertical":
+        return serpentine(w, h).T.contiguous()
+    charts = torch.from_numpy(SyntheticOnlineDetector(max(h, w))._charts())
+    return part_mask(charts, crop_part_args[0][0])[:h, :w].contiguous()
+
+
+def check_component_extents(dev, densepose_masks):
+    """K2 against its plain version, exactly: charts, random masks and
+    serpentines at 56x56 and 112x112, the strip-boundary shapes and
+    iteration caps; then the serving batches, timed: synthetic charts at
+    56x56 and 112x112 and ``densepose_masks``,
+    the CropHTAH masks of the DensePose detector's own 112x112 charts (the
+    last row is the kernel's)."""
     import torch
 
     from video_classification_tpu_torch.config.crop_cfg import crop_part_args
     from video_classification_tpu_torch.ops.component_extents import (
-        component_extents, component_extents_reference)
+        CLUSTER, ITERS_PER_SYNC, component_extents, component_extents_reference)
     from video_classification_tpu_torch.ops.components import part_mask
     from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
 
-    def exact(what, masks):
+    def exact(what, masks, max_iters=None, log_it=True):
         """Max |kernel - plain| over the four fields; fails unless 0."""
         err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  zip(component_extents(masks), component_extents_reference(masks)))
+                  zip(component_extents(masks, max_iters),
+                      component_extents_reference(masks, max_iters)))
         if err != 0:
             raise AssertionError(f"K2 {what}: max |kernel - plain| {err}")
-        log(f"  K2 {what}: exact")
+        if log_it:
+            log(f"  K2 {what}: exact")
         return err
 
     g = torch.Generator().manual_seed(2)
@@ -344,28 +408,44 @@ def check_component_extents(dev):
         for name, masks in cases.items():
             max_err = max(max_err, exact(f"{hm}x{hm} {name} x{masks.shape[0]}",
                                          masks.to(dev)))
+    # The strip-boundary shapes, mask kinds and iteration caps of the CPU
+    # emulation (S = ITERS_PER_SYNC iterations per exchange).
+    kinds = ("random", "sparse", "empty", "charts", "serpentine", "serpentine_vertical")
+    S = ITERS_PER_SYNC
+    for h, w in ((1, 37), (29, 1), (1, 255), (255, 1), (13, 17), (57, 76), (112, 112),
+                 (255, 255)):
+        masks = torch.stack([strip_masks(k, h, w, g) for k in kinds]).to(dev)
+        caps = sorted({0, 1, 2, S - 1, S, S + 1, h + w - 1, h + w})
+        for cap in caps:
+            max_err = max(max_err, exact(f"{h}x{w}", masks, cap, log_it=False))
+        log(f"  K2 {h}x{w} {', '.join(kinds)}, max_iters {caps}: exact")
 
-    # The serving shape: one clip's 20 sampled frames, CropHTAH part mask, at
-    # the synthetic detector's 56x56 heatmap (and DensePose's 112x112).
     rows = []
+    serving = {}
     for hm in (56, 112):
         charts = torch.from_numpy(SyntheticOnlineDetector(hm)._charts())
-        masks = part_mask(charts, crop_part_args[0][0]).expand(20, hm, hm).contiguous().to(dev)
-        max_err = max(max_err, exact(f"{hm}x{hm} serving masks x20", masks))
-        ms = cuda_ms(lambda: component_extents(masks), reps=20)
-        want, plain = cuda_call_ms(lambda: component_extents_reference(masks))
-        iters = executed_rounds(lambda k: all(torch.equal(a, b) for a, b in zip(
-            component_extents_reference(masks, k), want)), 2 * hm)
+        serving[f"synthetic 20x{hm}x{hm}"] = (
+            part_mask(charts, crop_part_args[0][0]).expand(20, hm, hm).contiguous().to(dev))
+    serving[f"densepose {'x'.join(map(str, densepose_masks.shape))}"] = densepose_masks
+    for what, masks in serving.items():
+        max_err = max(max_err, exact(f"{what} serving masks", masks))
         b, h, w = masks.shape
-        ops = b * iters * h * w * (8 * 4 + 4)
+        ms = cuda_ms(lambda: component_extents(masks), reps=20)
+        _, plain = cuda_call_ms(lambda: component_extents_reference(masks))
+        iters = executed_rounds_per_mask(component_extents_reference, masks, h + w)
+        # Each foreground pixel's separable 3x3 minimum per executed
+        # iteration of its mask: 2 vertical and 2 horizontal byte-wise
+        # minima of one word and the change test, counted at the f32 rate.
+        fg = (masks != 0).flatten(1).sum(1).tolist()
+        ops = 5 * sum(n * k for n, k in zip(fg, iters))
         bound_ms, bound_by = bound(ops, b * h * w * (1 + 16))
-        row = {"masks": f"20x{hm}x{hm}", "ms": round(ms, 4),
-               "plain_ms": round(plain, 4), "iters": iters,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+        row = {"masks": what, "ms": round(ms, 4), "plain_ms": round(plain, 4),
+               "iters": [min(iters), max(iters)], "fg_pixels": sum(fg),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "cluster": CLUSTER, "iters_per_sync": ITERS_PER_SYNC}
         log(f"  K2 time {json.dumps(row)}")
         rows.append(row)
-    # The DensePose path's shape (the synthetic path's 56x56 row is logged).
-    return {**rows[-1], "max_abs_err": max_err}
+    return {**rows[-1], "rows": rows, "max_abs_err": max_err}
 
 
 def nms_boxes(n: int, seed: int, extent: float):
@@ -379,10 +459,49 @@ def nms_boxes(n: int, seed: int, extent: float):
     return boxes.astype(np.float32), rng.rand(n).astype(np.float32)
 
 
-# f32 operations of K3 per box per executed iteration, counted from the
-# kernel: IoU 13 (min, max, sub, max per axis; mul; add, sub, max; div),
-# suppress test 2, running argmax 2.
-NMS_OPS_PER_BOX_ITER = 17
+def suppressed_chunk_case():
+    """Chunk 1: 64 disjoint boxes; chunk 2: a shifted copy of each, which
+    its original suppresses; chunk 3: new disjoint boxes (the CPU tests')."""
+    import numpy as np
+
+    grid = np.stack(np.meshgrid(np.arange(8), np.arange(8)), -1).reshape(64, 2) * 20.0
+    first = np.concatenate([grid, grid + 10.0], 1).astype(np.float32)
+    boxes = np.concatenate([first, first + np.float32(0.5), first + np.float32(400.0)])
+    scores = np.concatenate([np.linspace(0.99, 0.8, 64), np.linspace(0.79, 0.6, 64),
+                             np.linspace(0.59, 0.4, 64)]).astype(np.float32)
+    return boxes, scores
+
+
+def nms_scan_ops(scores, idx, mask, n_pad_min: int = 64, chunk: int = 64) -> int:
+    """Operations of K3's sorted scan on these inputs, counted from the
+    kernel: the bitonic sort of the padded keys (3 per compare-exchange)
+    and 13 per IoU test (min, max, sub, max per axis; mul; add, sub, max;
+    div) in the chunks the scan reached: each live candidate against the
+    boxes kept before its chunk, and the chunk's 64 x 63 / 2 pairs. The
+    chunks reached end with the one holding the last kept box when all
+    slots filled, else with the one holding the first score <= NEG/2."""
+    import torch
+
+    from video_classification_tpu_torch.detect.nms import NEG
+
+    bsz, n = scores.shape
+    n_pad = max(n_pad_min, 1 << (n - 1).bit_length())
+    stages = n_pad.bit_length() - 1
+    ops = bsz * (n_pad // 2) * stages * (stages + 1) // 2 * 3
+    s = scores.float().cpu() + 0.0  # -0.0 ties with +0.0
+    order = torch.sort(-s, dim=1, stable=True).indices
+    pos = torch.argsort(order, dim=1)
+    for f in range(bsz):
+        valid = int((s[f] > NEG * 0.5).sum())
+        kept = pos[f, idx[f].long().cpu()][mask[f].cpu()]
+        if mask[f].all():
+            chunks = int(kept.max()) // chunk + 1
+        else:
+            chunks = min(valid // chunk + 1, -(-n // chunk))
+        for c in range(chunks):
+            live = max(0, min(valid, (c + 1) * chunk) - c * chunk)
+            ops += 13 * (live * int((kept < c * chunk).sum()) + chunk * (chunk - 1) // 2)
+    return ops
 
 
 def capture_nms_batches(detector, frames):
@@ -430,7 +549,9 @@ def check_nms(dev, serving_calls):
         return err
 
     err = 0
-    for n in (20, 64, 1264):
+    # The chunks of the sorted scan hold 64 candidates: sizes on both sides
+    # of one and two chunks, and the sizes of the serving calls.
+    for n in (1, 20, 63, 64, 65, 127, 129, 1264):
         boxes, scores = nms_boxes(n, n, 60.0 if n < 1000 else 400.0)
         for max_out in (8, 64, n + 3):
             for thr in (0.5, 0.7):
@@ -447,8 +568,21 @@ def check_nms(dev, serving_calls):
     fb, fs = np.stack([b for b, _ in frames]), np.stack([s for _, s in frames])
     fs[1] = NEG
     err = max(err, case("batch of 3 with an empty frame", fb, fs, 12, 0.5))
+    boxes, scores = nms_boxes(200, 5, 600.0)
+    err = max(err, case("max_out 37 reached inside the first chunk", boxes, scores, 37, 0.5))
+    err = max(err, case("a chunk the kept boxes suppress entirely",
+                        *suppressed_chunk_case(), 150, 0.5))
+    b80 = np.concatenate([b16] * 5)
+    s80 = np.concatenate([s16, s16[::-1], s16, np.full(16, 0.5, np.float32), -s16])
+    s80[[3, 20, 40, 41]] = [-0.0, 0.0, -np.inf, NEG]
+    err = max(err, case("ties, +-0.0, -inf and NEG", b80, s80, 80, 0.5))
+    boxes, scores = nms_boxes(150, 7, 2000.0)
+    scores[70:] = NEG
+    err = max(err, case("scores at NEG from the second chunk on", boxes, scores, 140, 0.5))
     boxes, scores = nms_boxes(5000, 4, 800.0)
     err = max(err, case("N 5000 max_out 100 (provider budget)", boxes, scores, 100, 0.7))
+    boxes, scores = nms_boxes(8192, 6, 1600.0)
+    err = max(err, case("N 8192 max_out 300 (the most one block holds)", boxes, scores, 300, 0.7))
 
     rows = []
     for boxes, scores, max_out, thr in serving_calls:
@@ -457,15 +591,13 @@ def check_nms(dev, serving_calls):
         err = max(err, exact(what, boxes, scores, max_out, thr)[0])
         ms = cuda_ms(lambda: nms(boxes, scores, max_out, thr), reps=20)
         (_, mask), plain = cuda_call_ms(lambda: nms_reference(boxes, scores, max_out, thr))
-        # The loop ends after the first empty slot: count the iterations
-        # this data needs. The real limit is latency, max_out dependent
-        # block-wide reductions per frame; the bound below counts only
-        # operations and bytes.
-        iters = int(torch.clamp(mask.sum(1) + 1, max=max_out).sum())
-        ops = iters * n * NMS_OPS_PER_BOX_ITER + bsz * n * 4
+        # The work this data needs: the sort and the chunks the scan reached.
+        # The real limit is latency (the sort's and the chunks' barriers);
+        # the bound counts only operations and bytes.
+        ops = nms_scan_ops(scores, *nms(boxes, scores, max_out, thr))
         bound_ms, bound_by = bound(ops, bsz * n * 20 + bsz * max_out * 5)
         row = {"batch": f"{bsz}x{n}", "thr": thr, "max_out": max_out,
-               "kept": int(mask.sum()), "iters": iters, "ms": round(ms, 4),
+               "kept": int(mask.sum()), "ops": ops, "ms": round(ms, 4),
                "plain_ms": round(plain, 4), "bound_ms": bound_ms,
                "bound_by": bound_by}
         log(f"  K3 {what}: exact; time {json.dumps(row)}")
@@ -991,8 +1123,10 @@ def main() -> int:
         f"({', '.join(kernel_sources)}; headers {', '.join(HEADERS)}; "
         f"torch.utils.cpp_extension.load) in {time.perf_counter() - t0:.2f} s")
 
+    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
+    from video_classification_tpu_torch.ops.components import part_mask
     from video_classification_tpu_torch.ops.flow import FlowParams
     from video_classification_tpu_torch.ops.flow_level import flow_level
     from video_classification_tpu_torch.ops.label_components import label_components
@@ -1002,10 +1136,8 @@ def main() -> int:
     pyramids = flow_pyramids(dev)
     log("[3] K1 flow_level vs plain")
     k1 = check_flow_level(dev, pyramids)
-    log("[4] K2 component_extents vs plain")
-    k2 = check_component_extents(dev)
-
-    log("[5] K3 nms vs plain")
+    log("[4] K2 component_extents vs plain (the DensePose detector's serving masks "
+        "from one full-width detector run)")
     videos = synthetic_videos()
     t0 = time.perf_counter()
     detector = full_width_detector(dev, root)
@@ -1017,6 +1149,9 @@ def main() -> int:
     padded[:, 120:360, 160:480] = rgb
     calls, dets = capture_nms_batches(detector, padded)
     check_detections([dets], (480, 640))
+    k2 = check_component_extents(dev, part_mask(dets.charts, crop_part_args[0][0]))
+
+    log("[5] K3 nms vs plain (the serving batches of the same detector run)")
     k3 = check_nms(dev, calls)
 
     per_op = (sor_solve, warp_bilinear, label_components)

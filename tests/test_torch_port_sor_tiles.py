@@ -257,3 +257,9 @@ def test_profile_groups_name_every_kernel():
     with pytest.raises(RuntimeError, match="in no group"):
         _group("(anonymous namespace)::sor_kernel(Level, int, int)")
     assert _group("void at::native::vectorized_elementwise_kernel<4>(int)") == "other"
+    # Template kernels: the port's by their names, PyTorch's own anonymous
+    # namespaces' left to "other".
+    assert _group("void (anonymous namespace)::extents_cluster_kernel<4>(int)") \
+        == "component_extents"
+    assert _group("void (anonymous namespace)::elementwise_kernel_with_index<int>(int)") \
+        == "other"

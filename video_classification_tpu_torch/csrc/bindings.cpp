@@ -116,9 +116,9 @@ std::vector<torch::Tensor> component_extents(const torch::Tensor& masks,
   TORCH_CHECK(masks.is_cuda() && masks.dim() == 3,
               "masks must be a (B, H, W) CUDA tensor");
   const int64_t B = masks.size(0), H = masks.size(1), W = masks.size(2);
-  TORCH_CHECK(H <= 255 && W <= 255 && 8 * H * W <= kMaxSmem,
-              "component_extents: ", H, "x", W,
-              " masks exceed the byte-coded shared-memory propagation");
+  TORCH_CHECK(H <= 255 && W <= 255, "component_extents: ", H, "x", W,
+              " masks exceed the byte-packed propagation (H, W <= 255)");
+  TORCH_CHECK(B * H * W < (int64_t{1} << 31), "B*H*W must be < 2**31");
   const c10::cuda::CUDAGuard guard(masks.device());
   const auto m = masks.ne(0).to(torch::kUInt8).contiguous();
   std::vector<torch::Tensor> outs;
@@ -146,8 +146,8 @@ std::vector<torch::Tensor> nms(const torch::Tensor& boxes_in,
               "scores must be (B, N)");
   TORCH_CHECK(B > 0 && N > 0 && max_out > 0, "nms: empty input or output");
   TORCH_CHECK(nms_smem_bytes(N) <= kMaxSmem, "nms: ", N,
-              " boxes exceed one block's shared memory (at most ",
-              kMaxSmem / nms_smem_bytes(1), ")");
+              " boxes exceed one block's shared memory (",
+              nms_smem_bytes(N), " > ", kMaxSmem, " bytes)");
   const c10::cuda::CUDAGuard guard(boxes.device());
   auto idx = torch::empty({B, max_out}, boxes.options().dtype(torch::kInt32));
   auto mask = torch::empty({B, max_out}, boxes.options().dtype(torch::kBool));

@@ -30,7 +30,9 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     mask (B, max_out) bool), in keep (score-descending) order.
 
     CPU tensors run ``nms_reference``; CUDA tensors launch the kernel (and
-    raise if it cannot build or launch)."""
+    raise if it cannot build or launch). On CUDA, N is at most 8192: the
+    boxes and their sort keys, padded to a power of two, fill one block's
+    shared memory (``nms_smem_bytes``)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes must be (B, N, 4) and scores (B, N), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")

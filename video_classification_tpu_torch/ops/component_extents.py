@@ -6,7 +6,11 @@
 gets its 8-connected component's (min_row, max_row, min_col, max_col), by
 masked min/max propagation (Jacobi) until nothing changes, at most H + W
 iterations; background gets (INT32_MAX, -1, INT32_MAX, -1). See
-``csrc/component_extents.cu`` for the design on Hopper.
+``csrc/component_extents.cu`` for the design on Hopper: the four fields
+packed as bytes of one word, a thread-block cluster of ``CLUSTER`` CTAs per
+mask, each owning a strip of rows, ``ITERS_PER_SYNC`` iterations between
+halo exchanges (both fixed when the kernel is compiled). H and W are at most
+``MAX_SIDE``.
 
 ``component_extents_reference`` is the same propagation with plain tensor
 ops: the CPU path and the kernel's oracle on the card.
@@ -21,6 +25,9 @@ import torch
 from ..utils import cuda
 
 INT32_MAX = 2 ** 31 - 1
+MAX_SIDE = 255  # the packed bytes' limit (csrc/component_extents.cu kMaxSide)
+CLUSTER = 4  # CTAs per mask (kCluster)
+ITERS_PER_SYNC = 4  # iterations per halo exchange, at most (kItersPerSync)
 
 Extents = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 

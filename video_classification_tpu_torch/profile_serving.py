@@ -40,14 +40,16 @@ from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
 
 # The port's kernels are matched by their full names' prefix (they live in
-# an anonymous namespace of csrc/*.cu), the libraries' by substring. A kernel
-# of that namespace that no group names is an error, not "other".
+# an anonymous namespace of csrc/*.cu; a template's name starts with its
+# return type and goes on with its arguments, "void ...::name<8, 4>(...)"),
+# the libraries' by substring. A kernel of that namespace that no group names is
+# an error, not "other".
 PORT_PREFIX = "(anonymous namespace)::"
 PORT_KERNELS = (
     ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
                     "flow_level_sor_tile_kernel", "finish_kernel")),
-    ("component_extents", ("extents_kernel",)),
-    ("nms", ("nms_kernel",)),
+    ("component_extents", ("extents_cluster_kernel",)),
+    ("nms", ("nms_sorted_kernel",)),
     ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_tile_kernel")),
     ("warp_bilinear", ("warp_bilinear_kernel",)),
     ("label_components", ("label_components_kernel",)),
@@ -62,8 +64,11 @@ GROUPS = tuple(g for g, _ in PORT_KERNELS) + (LIBRARY_KERNELS[0], "other")
 
 def _group(name: str) -> str:
     for group, kernels in PORT_KERNELS:
-        if any(name.startswith(f"{PORT_PREFIX}{k}(") for k in kernels):
+        if any(name.startswith(f"{PORT_PREFIX}{k}(") or
+               name.startswith(f"void {PORT_PREFIX}{k}<") for k in kernels):
             return group
+    # A template of PyTorch's own anonymous namespaces also reads
+    # "void (anonymous namespace)::...<...>": only plain names are checked.
     if name.startswith(PORT_PREFIX):
         raise RuntimeError(f"port kernel {name!r} is in no group of PORT_KERNELS")
     low = name.lower()
