@@ -7,7 +7,8 @@ one NVIDIA GPU.
 Phases, each fatal on failure:
   1. environment: the card's name and power limit;
   2. build the CUDA kernels of utils/cuda.SOURCES from csrc/, with the
-     headers of utils/cuda.HEADERS (the SOR tiles, sor_tiles.cuh)
+     headers of utils/cuda.HEADERS (the SOR tiles, sor_tiles.cuh, and the
+     cluster strips, cluster_strips.cuh)
      (torch.utils.cpp_extension.load, sm_90a, into .torch_ext/);
   3. K1 flow_level bit-equal to its plain PyTorch version (u, v and mx) at
      every pyramid level shape of a 240x320 frame: 4 coherent-motion pairs
@@ -18,13 +19,17 @@ Phases, each fatal on failure:
   4. K2 component_extents against its plain version, exactly, at 56x56 and
      112x112 on synthetic-detector charts, random masks, a serpentine longer
      than H + W; on the strip-boundary shapes (1xW, Hx1 up to 255, 13x17,
-     57x76, 112x112, 255x255) with random, sparse, empty, chart and
-     horizontal and vertical serpentine masks at the iteration caps around
-     the iterations per halo exchange; then the serving batches, timed,
-     with each mask's executed iterations: the synthetic charts at 56x56
-     and 112x112 and the CropHTAH masks of the DensePose detector's own
-     112x112 charts from one full-width detector run on one clip's 20
-     padded frames (the kernel's row);
+     57x76, 112x112, 255x255 in narrow words; 1x256, 256x1, 257x300 and
+     240x320 in wide words on the cluster; 300x320, 4x330 and 480x640 in
+     device memory) with random, sparse, empty, chart and horizontal and
+     vertical serpentine masks at the iteration caps around the iterations
+     per halo exchange and at H + W; then timed, with each mask's executed
+     iterations and the time per dependent iteration: the synthetic charts
+     at 56x56 and 112x112, the six part masks of the DensePose detector's
+     first chart nearest-resized to 240x320 and 480x640 (wide words), and
+     the CropHTAH masks of the detector's own 112x112 charts from one
+     full-width detector run on one clip's 20 padded frames (the serving
+     batch, the kernel's row);
   5. K3 nms against its plain version, exactly (indices and mask): the CPU
      test cases, N on both sides of one and two 64-candidate chunks, max_out
      reached inside a chunk, a chunk the kept boxes suppress entirely, ties
@@ -58,7 +63,11 @@ Phases, each fatal on failure:
      batch, timed beside F.grid_sample (the library yardstick);
  12. K6 label_components against its plain version, exactly: part masks at
      56x56 and 112x112, random masks, a serpentine, rounds cut at 1 / 3 /
-     7, two 240x320 masks, and the 20-mask batches (timed);
+     7; the strip-boundary shapes (1xW, Hx1, 13x17, 57x76, 112x112, 240x320
+     on the cluster; 300x320 and 6x400 in device memory) with the mask
+     kinds and caps of 4; then the synthetic CropHTAH masks, 20 x 56x56,
+     20 x 112x112 and 20 x 240x320, timed with each mask's executed rounds
+     and the time per dependent round;
  13. the per-op flow path on the card against the checked-in goldens
      (tests/goldens; frames regenerated by numpy copies of the golden
      tests' generators): the sinusoid 240x320 and natural 96x128 at +-1 on
@@ -299,8 +308,10 @@ def check_flow_level(dev, pyramids):
 
 def executed_rounds_per_mask(reference, masks, cap: int):
     """Rounds each mask's propagation executes when it stops at its own
-    fixed point (``executed_rounds`` per mask): reference(masks, k) runs k
-    rounds at most; the masks sharing a bisection step share its call."""
+    fixed point: the fewest k after which reference(masks, k) (k rounds at
+    most; a tuple of tensors) no longer changes, found by bisection, plus
+    the last round, which sees no change; at most cap. The masks sharing a
+    bisection step share its call."""
     import torch
 
     want = reference(masks, cap)
@@ -318,20 +329,6 @@ def executed_rounds_per_mask(reference, masks, cap: int):
                 else:
                     lo[i] = mid + 1
     return [min(a + 1, cap) for a in lo]
-
-
-def executed_rounds(converged, cap: int) -> int:
-    """Rounds a propagation that stops at its fixed point executes: the
-    fewest k with converged(k), found by bisection, plus the last round,
-    which sees no change; at most cap."""
-    lo, hi = 0, cap
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if converged(mid):
-            hi = mid
-        else:
-            lo = mid + 1
-    return min(lo + 1, cap)
 
 
 def serpentine(h: int, w: int):
@@ -368,13 +365,83 @@ def strip_masks(kind: str, h: int, w: int, g):
     return part_mask(charts, crop_part_args[0][0])[:h, :w].contiguous()
 
 
-def check_component_extents(dev, densepose_masks):
+def resized(charts, h: int, w: int):
+    """(..., H0, W0) charts nearest-resized to h x w (source index
+    floor(i * H0 / h), as cv2.INTER_NEAREST re-rasterises a chart to its
+    person box in the JAX package's detect/provider.py)."""
+    import torch
+
+    h0, w0 = charts.shape[-2:]
+    ys = torch.arange(h, device=charts.device) * h0 // h
+    xs = torch.arange(w, device=charts.device) * w0 // w
+    return charts[..., ys, :][..., xs]
+
+
+def part_masks(chart):
+    """The six crop streams' part masks of one (H, W) chart, (6, H, W)."""
+    import torch
+
+    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
+    from video_classification_tpu_torch.ops.components import part_mask
+
+    return torch.stack([part_mask(chart, ids) for ids, _ in crop_part_args]).contiguous()
+
+
+def synthetic_part_masks(h: int, w: int, dev, n: int = 20):
+    """n copies of the CropHTAH part mask of the synthetic detector's
+    charts, made at 112x112 and nearest-resized to h x w unless square."""
+    import torch
+
+    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
+    from video_classification_tpu_torch.ops.components import part_mask
+    from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
+
+    charts = torch.from_numpy(SyntheticOnlineDetector(h if h == w else 112)._charts())
+    if h != w:
+        charts = resized(charts, h, w)
+    return part_mask(charts, crop_part_args[0][0]).expand(n, h, w).contiguous().to(dev)
+
+
+def time_extents(what, masks, fields_per_pass, route):
+    """K2's device time on ``masks`` beside its plain version's, each
+    mask's executed iterations (per pass of ``fields_per_pass`` fields, the
+    fields of one word), the bound and the time per dependent iteration."""
+    from video_classification_tpu_torch.ops.component_extents import (
+        component_extents, component_extents_reference)
+
+    b, h, w = masks.shape
+    ms = cuda_ms(lambda: component_extents(masks), reps=20)
+    _, plain = cuda_call_ms(lambda: component_extents_reference(masks))
+    fg = (masks != 0).flatten(1).sum(1).tolist()
+    passes = []
+    for f in range(0, 4, fields_per_pass):
+        def reference(m, k, f=f):
+            return component_extents_reference(m, k)[f:f + fields_per_pass]
+        passes.append(executed_rounds_per_mask(reference, masks, h + w))
+    # Each foreground pixel's separable 3x3 minimum per executed iteration
+    # of its mask and pass: 2 vertical and 2 horizontal minima of one word
+    # (byte-wise or halfword-wise) and the change test, at the f32 rate.
+    ops = 5 * sum(n * k for its in passes for n, k in zip(fg, its))
+    bound_ms, bound_by = bound(ops, b * h * w * (1 + 16))
+    slowest = max(max(its) for its in passes)
+    row = {"masks": what, "ms": round(ms, 4), "plain_ms": round(plain, 4),
+           "iters": [min(min(its) for its in passes), slowest], "fg_pixels": sum(fg),
+           "us_per_round": round(1e3 * ms / slowest, 3) if slowest else None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "route": route}
+    log(f"  K2 time {json.dumps(row)}")
+    return row
+
+
+def check_component_extents(dev, densepose_charts):
     """K2 against its plain version, exactly: charts, random masks and
     serpentines at 56x56 and 112x112, the strip-boundary shapes and
-    iteration caps; then the serving batches, timed: synthetic charts at
-    56x56 and 112x112 and ``densepose_masks``,
-    the CropHTAH masks of the DensePose detector's own 112x112 charts (the
-    last row is the kernel's)."""
+    iteration caps of the narrow words (up to 255x255) and of the wide ones
+    (past 255 px a side, on the cluster and in device memory, up to
+    480x640); then timed: the synthetic charts' CropHTAH masks at 56x56 and
+    112x112, the six crop streams' part masks of the first of
+    ``densepose_charts`` (the DensePose detector's own 112x112 charts)
+    nearest-resized to 240x320 and 480x640 (the wide words), and the CropHTAH
+    masks of all of them (the serving batch; the kernel's row)."""
     import torch
 
     from video_classification_tpu_torch.config.crop_cfg import crop_part_args
@@ -382,6 +449,9 @@ def check_component_extents(dev, densepose_masks):
         CLUSTER, ITERS_PER_SYNC, component_extents, component_extents_reference)
     from video_classification_tpu_torch.ops.components import part_mask
     from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
+    from video_classification_tpu_torch.utils.cuda import build
+
+    route = build().component_extents_route
 
     def exact(what, masks, max_iters=None, log_it=True):
         """Max |kernel - plain| over the four fields; fails unless 0."""
@@ -409,43 +479,40 @@ def check_component_extents(dev, densepose_masks):
             max_err = max(max_err, exact(f"{hm}x{hm} {name} x{masks.shape[0]}",
                                          masks.to(dev)))
     # The strip-boundary shapes, mask kinds and iteration caps of the CPU
-    # emulation (S = ITERS_PER_SYNC iterations per exchange).
+    # emulation (S = ITERS_PER_SYNC iterations per exchange): the narrow
+    # words up to 255x255, the wide ones past it, on the cluster up to 320
+    # columns while the strips fit shared memory, else in device memory.
     kinds = ("random", "sparse", "empty", "charts", "serpentine", "serpentine_vertical")
     S = ITERS_PER_SYNC
     for h, w in ((1, 37), (29, 1), (1, 255), (255, 1), (13, 17), (57, 76), (112, 112),
-                 (255, 255)):
+                 (255, 255), (1, 256), (256, 1), (257, 300), (240, 320), (300, 320),
+                 (4, 330), (480, 640)):
         masks = torch.stack([strip_masks(k, h, w, g) for k in kinds]).to(dev)
         caps = sorted({0, 1, 2, S - 1, S, S + 1, h + w - 1, h + w})
         for cap in caps:
             max_err = max(max_err, exact(f"{h}x{w}", masks, cap, log_it=False))
-        log(f"  K2 {h}x{w} {', '.join(kinds)}, max_iters {caps}: exact")
+        log(f"  K2 {h}x{w} ({route(h, w)} words) {', '.join(kinds)}, max_iters {caps}: exact")
+    want = {(255, 255): "narrow", (1, 256): "wide", (240, 320): "wide",
+            (300, 320): "device", (480, 640): "device"}
+    if any(route(*hw) != r for hw, r in want.items()):
+        raise AssertionError(f"K2 routes {[route(*hw) for hw in want]}, expected "
+                             f"{list(want.values())}")
 
+    timed = {f"synthetic 20x{hm}x{hm} serving masks": synthetic_part_masks(hm, hm, dev)
+             for hm in (56, 112)}
+    for h, w in ((240, 320), (480, 640)):
+        timed[f"densepose chart resized, 6 parts x{h}x{w}"] = part_masks(
+            resized(densepose_charts[0], h, w))
+    serving = part_mask(densepose_charts, crop_part_args[0][0]).contiguous()
+    timed[f"densepose {'x'.join(map(str, serving.shape))} serving masks"] = serving
     rows = []
-    serving = {}
-    for hm in (56, 112):
-        charts = torch.from_numpy(SyntheticOnlineDetector(hm)._charts())
-        serving[f"synthetic 20x{hm}x{hm}"] = (
-            part_mask(charts, crop_part_args[0][0]).expand(20, hm, hm).contiguous().to(dev))
-    serving[f"densepose {'x'.join(map(str, densepose_masks.shape))}"] = densepose_masks
-    for what, masks in serving.items():
-        max_err = max(max_err, exact(f"{what} serving masks", masks))
-        b, h, w = masks.shape
-        ms = cuda_ms(lambda: component_extents(masks), reps=20)
-        _, plain = cuda_call_ms(lambda: component_extents_reference(masks))
-        iters = executed_rounds_per_mask(component_extents_reference, masks, h + w)
-        # Each foreground pixel's separable 3x3 minimum per executed
-        # iteration of its mask: 2 vertical and 2 horizontal byte-wise
-        # minima of one word and the change test, counted at the f32 rate.
-        fg = (masks != 0).flatten(1).sum(1).tolist()
-        ops = 5 * sum(n * k for n, k in zip(fg, iters))
-        bound_ms, bound_by = bound(ops, b * h * w * (1 + 16))
-        row = {"masks": what, "ms": round(ms, 4), "plain_ms": round(plain, 4),
-               "iters": [min(iters), max(iters)], "fg_pixels": sum(fg),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "cluster": CLUSTER, "iters_per_sync": ITERS_PER_SYNC}
-        log(f"  K2 time {json.dumps(row)}")
-        rows.append(row)
-    return {**rows[-1], "rows": rows, "max_abs_err": max_err}
+    for what, masks in timed.items():
+        max_err = max(max_err, exact(what, masks))
+        h, w = masks.shape[1:]
+        words = route(h, w)
+        rows.append(time_extents(what, masks, 4 if words == "narrow" else 2, words))
+    return {**rows[-1], "rows": rows, "max_abs_err": max_err,
+            "cluster": CLUSTER, "iters_per_sync": ITERS_PER_SYNC}
 
 
 def nms_boxes(n: int, seed: int, extent: float):
@@ -774,7 +841,10 @@ def check_warp(dev, pyramids):
 def check_label_components(dev):
     """K6 against its plain version, exactly: the synthetic detector's part
     masks, random masks, a serpentine and rounds cut short at 56x56 and
-    112x112, two 240x320 masks; then the 20-mask batches, timed."""
+    112x112; the strip-boundary shapes, mask kinds and caps of the CPU
+    emulation up to 240x320 (on the cluster) and past it (device memory);
+    then timed: the synthetic CropHTAH masks, 20 x 56x56, 20 x 112x112 and,
+    nearest-resized, 20 x 240x320."""
     import torch
 
     from video_classification_tpu_torch.config.crop_cfg import crop_part_args
@@ -782,14 +852,19 @@ def check_label_components(dev):
     from video_classification_tpu_torch.ops.label_components import (
         label_components, label_components_reference)
     from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
+    from video_classification_tpu_torch.ops.component_extents import ITERS_PER_SYNC
+    from video_classification_tpu_torch.utils.cuda import build
 
-    def exact(what, masks, max_iters=None):
+    route = build().label_components_route
+
+    def exact(what, masks, max_iters=None, log_it=True):
         got = label_components(masks, max_iters)
         want = label_components_reference(masks, max_iters)
         err = int((got.long() - want.long()).abs().max())
         if err != 0 or got.dtype != torch.int32:
             raise AssertionError(f"K6 {what}: max |kernel - plain| {err}")
-        log(f"  K6 {what}: exact")
+        if log_it:
+            log(f"  K6 {what}: exact")
         return err
 
     g = torch.Generator().manual_seed(4)
@@ -807,27 +882,52 @@ def check_label_components(dev):
         for cut in (1, 3, 7):
             exact(f"{hm}x{hm} random0.45 x32, max_iters {cut}", random45.to(dev), cut)
             exact(f"{hm}x{hm} serpentine, max_iters {cut}", serpentine(hm, hm)[None].to(dev), cut)
-    exact("240x320 random0.45 + serpentine (device-memory buffers)", torch.stack(
-        [torch.rand((240, 320), generator=g) < 0.45, serpentine(240, 320)]).to(dev))
+    kinds = ("random", "sparse", "empty", "charts", "serpentine", "serpentine_vertical")
+    S = ITERS_PER_SYNC
+    for h, w in ((1, 37), (29, 1), (1, 320), (240, 1), (13, 17), (57, 76), (112, 112),
+                 (240, 320), (300, 320), (6, 400)):
+        masks = torch.stack([strip_masks(k, h, w, g) for k in kinds]).to(dev)
+        caps = sorted({0, 1, 2, S - 1, S, S + 1, h + w - 1, h + w})
+        for cap in caps:
+            exact(f"{h}x{w}", masks, cap, log_it=False)
+        log(f"  K6 {h}x{w} ({route(h, w)}) {', '.join(kinds)}, max_iters {caps}: exact")
+    want = {(240, 320): "cluster", (300, 320): "device", (6, 400): "device"}
+    if any(route(*hw) != r for hw, r in want.items()):
+        raise AssertionError(f"K6 routes {[route(*hw) for hw in want]}, expected "
+                             f"{list(want.values())}")
 
     rows = []
-    for hm in (56, 112):
-        charts = torch.from_numpy(SyntheticOnlineDetector(hm)._charts())
-        masks = part_mask(charts, crop_part_args[0][0]).expand(20, hm, hm).contiguous().to(dev)
-        exact(f"{hm}x{hm} serving masks x20", masks)
-        ms = cuda_ms(lambda: label_components(masks), reps=20)
-        want, plain = cuda_call_ms(lambda: label_components_reference(masks))
-        iters = executed_rounds(
-            lambda k: torch.equal(label_components_reference(masks, k), want), 2 * hm)
-        b, h, w = masks.shape
-        # 9 int32 minima per pixel and round (8 neighbours and the change
-        # test), counted at the f32 rate as for K2.
-        bound_ms, bound_by = bound(b * iters * h * w * 9, b * h * w * (1 + 4))
-        row = {"masks": f"20x{hm}x{hm}", "ms": round(ms, 4), "plain_ms": round(plain, 4),
-               "rounds": iters, "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"  K6 time {json.dumps(row)}")
-        rows.append(row)
-    return {**rows[-1], "rows": rows, "max_abs_err": 0}
+    for h, w in ((56, 56), (112, 112), (240, 320)):
+        masks = synthetic_part_masks(h, w, dev)
+        exact(f"{h}x{w} serving masks x20", masks)
+        rows.append(time_labels(f"20x{h}x{w}", masks, route(h, w)))
+    # The kernel's row: 112x112, the DensePose detector's chart size.
+    return {**rows[1], "rows": rows, "max_abs_err": 0}
+
+
+def time_labels(what, masks, route):
+    """K6's device time on ``masks`` beside its plain version's, each
+    mask's executed rounds, the bound and the time per dependent round."""
+    from video_classification_tpu_torch.ops.label_components import (
+        label_components, label_components_reference)
+
+    b, h, w = masks.shape
+    ms = cuda_ms(lambda: label_components(masks), reps=20)
+    _, plain = cuda_call_ms(lambda: label_components_reference(masks))
+    rounds = executed_rounds_per_mask(lambda m, k: (label_components_reference(m, k),),
+                                      masks, h + w)
+    # Each foreground pixel's separable 3x3 minimum per executed round of
+    # its mask: 2 vertical and 2 horizontal minima and the change test,
+    # counted at the f32 rate as for K2; the mask in, the labels out.
+    fg = (masks != 0).flatten(1).sum(1).tolist()
+    ops = 5 * sum(n * k for n, k in zip(fg, rounds))
+    bound_ms, bound_by = bound(ops, b * h * w * (1 + 4))
+    row = {"masks": what, "ms": round(ms, 4), "plain_ms": round(plain, 4),
+           "rounds": [min(rounds), max(rounds)], "fg_pixels": sum(fg),
+           "us_per_round": round(1e3 * ms / max(rounds), 3) if max(rounds) else None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "route": route}
+    log(f"  K6 time {json.dumps(row)}")
+    return row
 
 
 def make_frames(seed=0, t=3, h=240, w=320):
@@ -1123,10 +1223,8 @@ def main() -> int:
         f"({', '.join(kernel_sources)}; headers {', '.join(HEADERS)}; "
         f"torch.utils.cpp_extension.load) in {time.perf_counter() - t0:.2f} s")
 
-    from video_classification_tpu_torch.config.crop_cfg import crop_part_args
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
-    from video_classification_tpu_torch.ops.components import part_mask
     from video_classification_tpu_torch.ops.flow import FlowParams
     from video_classification_tpu_torch.ops.flow_level import flow_level
     from video_classification_tpu_torch.ops.label_components import label_components
@@ -1149,7 +1247,7 @@ def main() -> int:
     padded[:, 120:360, 160:480] = rgb
     calls, dets = capture_nms_batches(detector, padded)
     check_detections([dets], (480, 640))
-    k2 = check_component_extents(dev, part_mask(dets.charts, crop_part_args[0][0]))
+    k2 = check_component_extents(dev, dets.charts)
 
     log("[5] K3 nms vs plain (the serving batches of the same detector run)")
     k3 = check_nms(dev, calls)

@@ -5,7 +5,13 @@ The port's plain K2 (``component_extents_reference``, what
 ``component_extents_pallas(..., interpret=True)``, and the port's
 ``largest_component_bbox`` against the JAX function, exactly, on random
 masks, the synthetic detector's part masks and a serpentine whose geodesic
-diameter exceeds H + W (so both stop at the same iteration cap).
+diameter exceeds H + W (so both stop at the same iteration cap). Past 255 px
+a side (the wide words of kernel K2 on the card), on part masks of the
+synthetic detector's 112x112 charts nearest-resized to a person box, as the
+JAX offline chain's provider re-rasterises them (``detect/provider.py``),
+the port's ``component_extents_reference`` against JAX
+``_component_extents_xla`` and its ``largest_component_bbox`` against
+JAX's, exactly.
 """
 
 import jax.numpy as jnp
@@ -87,3 +93,42 @@ def test_part_mask_and_taxonomy_match_jax():
         want = np.asarray(jcomp.part_mask(jnp.asarray(charts), ids))
         got = tcomp.part_mask(torch.from_numpy(charts), ids).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+def _box_part_masks(h, w, parts):
+    """The synthetic detector's 112x112 charts nearest-resized to an h x w
+    box (cv2.INTER_NEAREST's source index floor(i * 112 / h)), then the part
+    masks of the crop streams ``parts``."""
+    charts = JaxDetector(112)._charts()
+    ys = np.minimum(np.arange(h) * charts.shape[0] // h, charts.shape[0] - 1)
+    xs = np.minimum(np.arange(w) * charts.shape[1] // w, charts.shape[1] - 1)
+    boxed = charts[ys][:, xs]
+    return np.stack([np.isin(boxed, jax_parts[p][0]) for p in parts])
+
+
+# Person boxes on the 2x-padded 480x640 frame: taller than 255, wider than
+# 255, and the whole frame, with the CropHTAH, CropLHand and CropTorso part
+# masks (the hand's alone on the whole frame, to keep the plain loop short).
+BOXES = [((257, 300), (0, 1, 5)), ((240, 320), (0, 1, 5)), ((480, 640), (1,))]
+BOX_IDS = [f"{h}x{w}" for (h, w), _ in BOXES]
+
+
+@pytest.mark.parametrize("hw,parts", BOXES, ids=BOX_IDS)
+def test_extents_above_255_match_jax_xla(hw, parts):
+    masks = _box_part_masks(*hw, parts)
+    got = component_extents(torch.from_numpy(masks))
+    for i, m in enumerate(masks):
+        want = jcomp._component_extents_xla(jnp.asarray(m))
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(wnt))
+
+
+@pytest.mark.parametrize("hw,parts", BOXES, ids=BOX_IDS)
+def test_largest_component_bbox_above_255_matches_jax(hw, parts):
+    masks = _box_part_masks(*hw, parts)
+    bbox, valid = tcomp.largest_component_bbox(torch.from_numpy(masks))
+    assert bool(valid.all())
+    for i, m in enumerate(masks):
+        jb, jv = jcomp.largest_component_bbox(jnp.asarray(m), backend="xla")
+        np.testing.assert_array_equal(bbox[i].numpy(), np.asarray(jb))
+        assert bool(valid[i]) == bool(jv)

@@ -1,34 +1,23 @@
-"""K2's cluster schedule (``csrc/component_extents.cu``), emulated on the CPU.
+"""K2's propagation (``csrc/component_extents.cu`` on
+``csrc/cluster_strips.cuh``), emulated on the CPU.
 
 The kernel runs only on the card. This file replays its schedule with plain
-tensor ops, with the kernel's constants read from the source, and holds the
-result ``torch.equal`` to ``component_extents_reference``:
+tensor ops (``cluster_strips_emulation``: strips of rows over a cluster of
+CTAs, S iterations per halo exchange, poisoned cells that must be
+rewritten), with the constants read from the sources, and holds the result
+``torch.equal`` to ``component_extents_reference``, for both word layouts:
 
-- each pixel is one word of four bytes, min_row, 254 - max_row, min_col,
-  254 - max_col, all four fields minima, background 0xFF in every byte;
-  decoded to int32 with the exact sentinels;
-- a cluster of C = CLUSTER CTAs per mask; CTA r owns rows
-  [r * rows, (r + 1) * rows), rows = ceil(H / C), in two Jacobi buffers of
-  (rows + 2 S) x W words, the strip with S = min(ITERS_PER_SYNC, rows) halo
-  rows above and below;
-- S iterations per halo exchange: a batch copies the CTA's inbox into its
-  halo rows, then iteration s = 1..S takes the separable 3x3 minimum
-  (vertical from the buffer, horizontal from the neighbouring columns,
-  background past the row's ends) on the foreground of the strip and
-  S - s halo rows on each side, reading only the CTA's own buffer (the
-  emulation hands each CTA nothing else); after the last iteration the
-  strip's first and last S rows go into the inboxes of the CTAs above and
-  below; the last batch is clipped at max_iters;
-- before every iteration, each cell the iteration must write (the
-  foreground of its rows) is poisoned with 0, which wins every minimum, and
-  so is every inbox cell a batch must send, so a missing write or send
-  shows in the result; background cells and the outer halo rows keep the
-  background from the start;
-- every CTA of a mask stops after the first batch in which no pixel of the
-  mask changed (it started from the fixed point), or at max_iters.
+- narrow, H, W <= 255: each pixel is one word of four bytes, min_row,
+  254 - max_row, min_col, 254 - max_col, all four fields minima, background
+  0xFF in every byte;
+- wide, larger masks: two passes of one word of two 16-bit fields, (min_row,
+  65534 - max_row) and (min_col, 65534 - max_col), background 0xFFFF in each
+  field, each pass stopping on its own; on the cluster when its strips fit
+  shared memory, else by the device-memory route;
+decoded to int32 with the exact sentinels.
 
-Shapes from a single row or column up to 255x255; masks made with numpy
-from seeds.
+Shapes from a single row or column up to 255x255 (narrow) and from 1x256
+and 256x1 to 480x640 (wide); masks made with numpy from seeds.
 """
 
 import math
@@ -39,28 +28,36 @@ import pytest
 import torch
 
 from video_classification_tpu_torch.ops.component_extents import (
-    CLUSTER, ITERS_PER_SYNC, MAX_SIDE, component_extents_reference)
+    CLUSTER, ITERS_PER_SYNC, MAX_SIDE, NARROW_SIDE, component_extents_reference)
 from video_classification_tpu_torch.pipeline.online import SyntheticOnlineDetector
 from video_classification_tpu_torch.config.crop_cfg import crop_part_args
 from video_classification_tpu_torch.ops.components import part_mask
 from video_classification_tpu_torch.utils import cuda
+from cluster_strips_emulation import HEADER, cluster_run, device_run, fits_cluster
+import cluster_strips_emulation as emulation
 from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
 
 SOURCE = (cuda.CSRC / "component_extents.cu").read_text()
 CONSTS = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", SOURCE)}
+WIDE_CHUNKS = int(re.search(r"struct Wide \{.*?kMaxChunks = (\d+);", SOURCE, re.S)[1])
 BG = 0xFF
-MAX_SMEM = 232448  # dynamic shared memory of one H100 block
+WIDE_BG = 0xFFFF
+M = 65534  # the wide fields' complement: a maximum m is stored as M - m
 INT32_MAX = 2 ** 31 - 1
 
 
 def launchable(h, w):
-    """The kernel's launch check: two Jacobi buffers of (rows + 2 S) rows
-    and two inbox parities of 2 S rows, of 4-byte words, rows padded to 32
-    words, in one block's shared memory."""
-    rows = -(-h // CLUSTER)
-    S = min(ITERS_PER_SYNC, rows)
-    stride = -(-w // 32) * 32
-    return (2 * (rows + 2 * S) + 4 * S) * stride * 4 <= MAX_SMEM
+    """The narrow words' launch check (``fits_cluster`` of the header), which
+    every mask up to 255x255 passes."""
+    return fits_cluster(h, w, -(-NARROW_SIDE // 32))
+
+
+def route(h, w):
+    """``component_extents_route``: narrow words on the cluster, wide words
+    on the cluster, or wide words in device memory."""
+    if h <= NARROW_SIDE and w <= NARROW_SIDE:
+        return "narrow"
+    return "wide" if fits_cluster(h, w, WIDE_CHUNKS) else "device"
 
 
 def encode(fg):
@@ -84,64 +81,39 @@ def decode(lanes):
 
 
 def cluster_extents(mask, max_iters):
-    """One (H, W) mask by the kernel's schedule; the four int32 fields and
-    the iterations run. The CTAs are a leading dimension; a strip past the
-    mask's last row is background (the kernel's short last strip and its
-    empty neighbours hold only background there too)."""
-    h, w = mask.shape
-    c = CLUSTER
-    rows = -(-h // c)
-    S = min(ITERS_PER_SYNC, rows)
-    pad = torch.zeros((c * rows, w), dtype=torch.bool)
-    pad[:h] = mask
-    fg = pad.view(c, rows, w, 1)
-    bufs = torch.full((c, 2, rows + 2 * S, w, 4), BG, dtype=torch.int32)
-    inbox = torch.full((c, 2, 2 * S, w, 4), BG, dtype=torch.int32)
+    """One (H, W) mask of at most 255x255 by the kernel's schedule of narrow
+    words; the four int32 fields and the iterations run."""
+    words, done = cluster_run(encode(mask), BG, max_iters)
+    return decode(words), done
 
-    def push(par, new):
-        """The strip's first S rows into the inbox below-part of the CTA
-        above, its last S rows into the above-part of the CTA below."""
-        up, first = inbox[:-1, par, S:], fg[1:, :S]
-        inbox[:-1, par, S:] = torch.where(first, new[1:, :S], up)
-        down, last = inbox[1:, par, :S], fg[:-1, rows - S:]
-        inbox[1:, par, :S] = torch.where(last, new[:-1, rows - S:], down)
 
-    words = encode(pad).view(c, rows, w, 4).to(torch.int32)
-    bufs[:, 0, S:S + rows] = words
-    push(0, words)
-    cur, done, batch = 0, 0, 0
-    while done < max_iters:
-        steps = min(S, max_iters - done)
-        par = batch & 1
-        bufs[:, cur, :S] = inbox[:, par, :S]
-        bufs[:, cur, S + rows:] = inbox[:, par, S:]
-        # Poison what this batch must push (only the last iteration does).
-        push(1 - par, torch.zeros_like(words))
-        changed = False
-        for step in range(1, steps + 1):
-            k = steps - step  # halo rows still updated on each side
-            lo, hi = S - k, S + rows + k
-            src, dst = bufs[:, cur], bufs[:, 1 - cur]
-            old = src[:, lo:hi]
-            live = old != BG
-            # Poison what this iteration must write: its region's foreground.
-            dst[:, lo:hi] = torch.where(live, torch.zeros_like(old), dst[:, lo:hi])
-            v = torch.minimum(torch.minimum(src[:, lo - 1:hi - 1], old), src[:, lo + 1:hi + 1])
-            edge = torch.full_like(v[:, :, :1], BG)
-            left = torch.cat([edge, v[:, :, :-1]], 2)
-            right = torch.cat([v[:, :, 1:], edge], 2)
-            new = torch.where(live, torch.minimum(torch.minimum(left, v), right), old)
-            dst[:, lo:hi] = new
-            strip = new[:, k:k + rows]
-            changed |= not torch.equal(strip, old[:, k:k + rows])
-            if step == steps:
-                push(1 - par, strip)
-            cur = 1 - cur
-        done += steps
-        batch += 1
-        if not changed:
-            break
-    return decode(bufs[:, cur, S:S + rows].reshape(c * rows, w, 4)[:h]), done
+def encode_wide(fg, rows):
+    """(H, W) bool -> (H, W, 2) int64 16-bit fields of one pass, (v, M - v)
+    with v the row (pass 0) or column (pass 1), background WIDE_BG."""
+    h, w = fg.shape
+    v = (torch.arange(h).view(h, 1) if rows else torch.arange(w).view(1, w)).expand(h, w)
+    fields = torch.stack([v, M - v], -1)
+    return torch.where(fg[..., None], fields, torch.full_like(fields, WIDE_BG))
+
+
+def decode_wide(fields):
+    """(..., 2) 16-bit fields of one pass -> (min, max) int32."""
+    lo, hi = fields[..., 0], fields[..., 1]
+    return (torch.where(lo == WIDE_BG, torch.full_like(lo, INT32_MAX), lo).to(torch.int32),
+            torch.where(hi == WIDE_BG, torch.full_like(hi, -1), M - hi).to(torch.int32))
+
+
+def wide_extents(mask, max_iters):
+    """One (H, W) mask by the wide words' route: pass 0 rows, pass 1
+    columns, each stopping on its own; the four int32 fields and each
+    pass's iterations."""
+    run = cluster_run if route(*mask.shape) == "wide" else device_run
+    fields, ran = [], []
+    for rows in (True, False):
+        words, done = run(encode_wide(mask, rows), WIDE_BG, max_iters)
+        fields += decode_wide(words)
+        ran.append(done)
+    return tuple(fields), ran
 
 
 def _serpentine(h, w):
@@ -169,12 +141,12 @@ def _mask(kind, h, w, seed=0):
     return part_mask(charts, crop_part_args[0][0]).numpy()[:h, :w]
 
 
-def _check(m, max_iters=None):
+def _check(m, max_iters=None, emulate=cluster_extents):
     h, w = m.shape
     max_iters = h + w if max_iters is None else max_iters
     mask = torch.from_numpy(np.ascontiguousarray(m))
     want = component_extents_reference(mask[None], max_iters)
-    got, _ = cluster_extents(mask, max_iters)
+    got, _ = emulate(mask, max_iters)
     for g, wt in zip(got, want):
         assert torch.equal(g, wt[0])
 
@@ -184,14 +156,17 @@ KINDS = ["random", "sparse", "empty", "charts", "serpentine", "serpentine_vertic
 
 
 def test_constants_match_the_source():
-    assert CONSTS["kMaxSide"] == MAX_SIDE == 255
-    assert CONSTS["kCluster"] == CLUSTER and 1 < CLUSTER <= 8  # a portable cluster size
-    assert CONSTS["kItersPerSync"] == ITERS_PER_SYNC >= 1
-    assert "s.rows = (H + kCluster - 1) / kCluster;" in SOURCE
-    assert "s.S = std::min(kItersPerSync, s.rows);" in SOURCE
-    assert "s.smem = (size_t)(2 * (s.rows + 2 * s.S) + 4 * s.S) * stride * 4;" in SOURCE
-    # The cluster takes every mask up to 255x255.
-    assert launchable(MAX_SIDE, MAX_SIDE)
+    assert CONSTS["kNarrowSide"] == NARROW_SIDE == 255
+    assert CONSTS["kMaxSide"] == MAX_SIDE == M
+    assert "kMaxChunks = (kNarrowSide + 31) / 32;" in SOURCE
+    assert emulation.CLUSTER == CLUSTER and 1 < CLUSTER <= 8  # a portable cluster size
+    assert emulation.ITERS_PER_SYNC == ITERS_PER_SYNC >= 1
+    assert "s.rows = (H + kCluster - 1) / kCluster;" in HEADER
+    assert "s.S = std::min(kItersPerSync, s.rows);" in HEADER
+    assert "s.smem = (size_t)(2 * (s.rows + 2 * s.S) + 4 * s.S) * s.chunks * 32 * 4;" in HEADER
+    assert "constexpr int kStaticSmem = 2 * 8 + 2 * kCluster * 4;" in HEADER
+    # The cluster takes every mask up to 255x255 in narrow words.
+    assert launchable(NARROW_SIDE, NARROW_SIDE)
 
 
 def test_packed_words_decode_and_take_minima():
@@ -248,3 +223,71 @@ def test_serpentines_cross_every_strip_and_stop_at_the_cap():
         assert ran == 57 + 76
         rows = -(-57 // CLUSTER)
         assert all(m[r * rows:(r + 1) * rows].any() for r in range(math.ceil(57 / rows)))
+
+
+def test_wide_words_decode_and_take_minima():
+    """The wide word: bits 0-15 the minimum, bits 16-31 M - the maximum
+    (M = 65534); a halfword-wise minimum (__vminu2) of two words is the
+    field-wise min / max of what they encode, and background (0xFFFF in
+    each field) loses; the field reaches 65534 at both ends."""
+    rng = np.random.RandomState(1)
+    fields = rng.randint(0, M + 1, size=(500, 2, 2)).astype(np.uint16)
+    fields[rng.rand(500, 2) < 0.2] = WIDE_BG
+    words = fields.view(np.uint32)[..., 0]  # little-endian: the minimum lowest
+    assert (words[:, 0] & 0xFFFF == fields[:, 0, 0]).all()
+    vmin = np.minimum(words[:, 0:1].view(np.uint16), words[:, 1:2].view(np.uint16))
+    got = decode_wide(torch.from_numpy(vmin.astype(np.int64)))
+    pair = [decode_wide(torch.from_numpy(fields[:, i].astype(np.int64))) for i in (0, 1)]
+    assert torch.equal(got[0], torch.minimum(pair[0][0], pair[1][0]))
+    assert torch.equal(got[1], torch.maximum(pair[0][1], pair[1][1]))
+    top = torch.tensor([[M, 0], [0, M], [WIDE_BG, WIDE_BG]])
+    assert [f.tolist() for f in decode_wide(top)] == [[M, 0, INT32_MAX], [M, 0, -1]]
+    fg = torch.ones((3, M + 1), dtype=torch.bool)
+    mn, mx = decode_wide(encode_wide(fg, rows=False))
+    assert int(mn[1, M]) == int(mx[1, M]) == M and int(mx[2, 0]) == 0
+    assert [int(f[0, 0]) for f in decode_wide(encode_wide(~fg, rows=True))] == [INT32_MAX, -1]
+
+
+def test_routes():
+    """Narrow words up to 255x255; wide words on the cluster where their
+    strips fit (up to 320 columns: a 240x320 mask does, 300x320 does not),
+    else in device memory (480x640)."""
+    assert [route(*hw) for hw in [(255, 255), (1, 255), (255, 1)]] == ["narrow"] * 3
+    assert [route(*hw) for hw in [(1, 256), (256, 1), (257, 300), (240, 320),
+                                  (296, 320), (388, 256)]] == ["wide"] * 6
+    assert [route(*hw) for hw in [(300, 320), (480, 640), (4, 321), (389, 256),
+                                  (MAX_SIDE, MAX_SIDE)]] == ["device"] * 5
+    rows, S, stride = emulation.strip_shape(240, 320)
+    assert (rows, S, stride) == (60, 4, 320)
+    assert (2 * (rows + 2 * S) + 4 * S) * stride * 4 == 194560
+
+
+WIDE_SHAPES = [(1, 256), (256, 1), (257, 300), (240, 320)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("hw", WIDE_SHAPES, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_wide_schedule_equals_the_plain_propagation(hw, kind):
+    h, w = hw
+    assert route(h, w) == "wide"
+    _check(_mask(kind, h, w), emulate=wide_extents)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2, "S-1", "S", "S+1", "H+W-1", "H+W"])
+@pytest.mark.parametrize("hw,kind", [((1, 256), "serpentine"), ((256, 1), "serpentine_vertical"),
+                                     ((257, 300), "sparse"), ((240, 320), "charts")],
+                         ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else v)
+def test_wide_iteration_cap(hw, kind, max_iters):
+    h, w = hw
+    S = ITERS_PER_SYNC
+    cap = {"S-1": S - 1, "S": S, "S+1": S + 1, "H+W-1": h + w - 1,
+           "H+W": h + w}.get(max_iters, max_iters)
+    _check(_mask(kind, h, w), cap, emulate=wide_extents)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, ITERS_PER_SYNC, None])
+def test_wide_device_route_sparse_480x640(max_iters):
+    """A sparse 480x640 mask (the 2x-padded frame) fits no cluster: the
+    device-memory route, each pass stopping on its own."""
+    assert route(480, 640) == "device"
+    _check(_mask("sparse", 480, 640), max_iters, emulate=wide_extents)

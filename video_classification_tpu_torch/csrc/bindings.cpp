@@ -1,7 +1,8 @@
 // PyTorch bindings of the hand-written CUDA kernels of this directory:
 // flow_level (flow_level.cu), component_extents (component_extents.cu), nms
 // (nms.cu), sor_solve (sor_solve.cu), warp_bilinear (warp.cu) and
-// label_components (label_components.cu).
+// label_components (label_components.cu), and the routes the last two's
+// propagations take (cluster_strips.cuh).
 // Built together as one extension by utils/cuda.py::build; the Python
 // wrappers (ops/flow_level.py, ops/component_extents.py, detect/nms.py,
 // ops/sor_solve.py, ops/warp.py, ops/label_components.py) call these on CUDA
@@ -14,6 +15,7 @@
 #include <torch/extension.h>
 
 #include <cstdint>
+#include <string>
 #include <tuple>
 #include <vector>
 
@@ -25,10 +27,12 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
                               int r_cap, float outer_tol, cudaStream_t st);
 int flow_level_num_fields();
 void sor_tiles_schedule(int out[3]);
+int component_extents_route(int H, int W);
+int64_t component_extents_scratch_bytes(int B, int H, int W);
 cudaError_t component_extents_launch(const uint8_t* masks, int32_t* mnr,
                                      int32_t* mxr, int32_t* mnc, int32_t* mxc,
-                                     int B, int H, int W, int max_iters,
-                                     cudaStream_t st);
+                                     void* scratch, int B, int H, int W,
+                                     int max_iters, cudaStream_t st);
 int64_t nms_smem_bytes(int64_t N);
 cudaError_t nms_launch(const float* boxes, const float* scores, int32_t* idx,
                        bool* mask, int B, int N, int max_out, float thr,
@@ -40,15 +44,16 @@ cudaError_t sor_solve_launch(const float* const* fields, float* scratch,
 cudaError_t warp_bilinear_launch(const float* im, const float* u,
                                  const float* v, float* out, int B, int H,
                                  int W, int C, cudaStream_t st);
-int64_t label_components_smem_bytes(int64_t H, int64_t W);
+int label_components_route(int H, int W);
+int64_t label_components_scratch_bytes(int B, int H, int W);
 cudaError_t label_components_launch(const uint8_t* masks, int32_t* out,
-                                    int32_t* scratch, int B, int H, int W,
-                                    int max_iters, int64_t max_smem,
-                                    cudaStream_t st);
+                                    void* scratch, int B, int H, int W,
+                                    int max_iters, cudaStream_t st);
 
 namespace {
 
 constexpr int64_t kMaxSmem = 232448;  // dynamic shared memory of one H100 block
+constexpr int64_t kMaxExtentsSide = 65534;  // component_extents.cu kMaxSide
 
 void check_launch(cudaError_t err, const char* what) {
   TORCH_CHECK(err == cudaSuccess, what, ": ", cudaGetErrorString(err));
@@ -64,6 +69,17 @@ void check_schedule(const std::vector<int64_t>& schedule, const char* what) {
               what, ": SOR schedule ", c10::IntArrayRef(schedule),
               " differs from the compiled (", compiled[0], ", ", compiled[1],
               ", ", compiled[2], ")");
+}
+
+// The device-memory route's buffers of cluster_strips.cuh (none when the
+// masks take the cluster route).
+torch::Tensor strip_scratch(int64_t bytes, const torch::Tensor& like) {
+  return bytes ? torch::empty({bytes}, like.options().dtype(torch::kUInt8))
+               : torch::Tensor();
+}
+
+void* scratch_ptr(const torch::Tensor& t) {
+  return t.defined() ? t.data_ptr() : nullptr;
 }
 
 torch::Tensor cuda_f32(const torch::Tensor& t, const char* name) {
@@ -116,19 +132,21 @@ std::vector<torch::Tensor> component_extents(const torch::Tensor& masks,
   TORCH_CHECK(masks.is_cuda() && masks.dim() == 3,
               "masks must be a (B, H, W) CUDA tensor");
   const int64_t B = masks.size(0), H = masks.size(1), W = masks.size(2);
-  TORCH_CHECK(H <= 255 && W <= 255, "component_extents: ", H, "x", W,
-              " masks exceed the byte-packed propagation (H, W <= 255)");
+  TORCH_CHECK(H <= kMaxExtentsSide && W <= kMaxExtentsSide, "component_extents: ",
+              H, "x", W, " masks exceed the 16-bit fields (H, W <= ",
+              kMaxExtentsSide, ")");
   TORCH_CHECK(B * H * W < (int64_t{1} << 31), "B*H*W must be < 2**31");
   const c10::cuda::CUDAGuard guard(masks.device());
   const auto m = masks.ne(0).to(torch::kUInt8).contiguous();
   std::vector<torch::Tensor> outs;
   for (int f = 0; f < 4; ++f)
     outs.push_back(torch::empty({B, H, W}, m.options().dtype(torch::kInt32)));
+  auto scratch = strip_scratch(component_extents_scratch_bytes(B, H, W), m);
   check_launch(component_extents_launch(
                    m.data_ptr<uint8_t>(), outs[0].data_ptr<int32_t>(),
                    outs[1].data_ptr<int32_t>(), outs[2].data_ptr<int32_t>(),
-                   outs[3].data_ptr<int32_t>(), B, H, W, max_iters,
-                   at::cuda::getCurrentCUDAStream()),
+                   outs[3].data_ptr<int32_t>(), scratch_ptr(scratch), B, H, W,
+                   max_iters, at::cuda::getCurrentCUDAStream()),
                "component_extents");
   return outs;
 }
@@ -229,16 +247,24 @@ torch::Tensor label_components(const torch::Tensor& masks, int64_t max_iters) {
   const c10::cuda::CUDAGuard guard(masks.device());
   const auto m = masks.ne(0).to(torch::kUInt8).contiguous();
   auto out = torch::empty({B, H, W}, m.options().dtype(torch::kInt32));
-  torch::Tensor scratch;
-  if (label_components_smem_bytes(H, W) > kMaxSmem)
-    scratch = torch::empty({2, B, H, W}, out.options());
+  auto scratch = strip_scratch(label_components_scratch_bytes(B, H, W), m);
   check_launch(label_components_launch(
                    m.data_ptr<uint8_t>(), out.data_ptr<int32_t>(),
-                   scratch.defined() ? scratch.data_ptr<int32_t>() : nullptr,
-                   B, H, W, max_iters, kMaxSmem,
+                   scratch_ptr(scratch), B, H, W, max_iters,
                    at::cuda::getCurrentCUDAStream()),
                "label_components");
   return out;
+}
+
+// The route each propagation takes for H x W masks (cluster_strips.cuh):
+// "narrow" or "wide" words on the thread-block cluster, or "device" memory.
+std::string component_extents_route_of(int64_t H, int64_t W) {
+  static const char* names[3] = {"narrow", "wide", "device"};
+  return names[component_extents_route(H, W)];
+}
+
+std::string label_components_route_of(int64_t H, int64_t W) {
+  return label_components_route(H, W) == 0 ? "cluster" : "device";
 }
 
 }  // namespace
@@ -250,4 +276,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sor_solve", &sor_solve);
   m.def("warp_bilinear", &warp_bilinear);
   m.def("label_components", &label_components);
+  m.def("component_extents_route", &component_extents_route_of);
+  m.def("label_components_route", &label_components_route_of);
 }

@@ -12,99 +12,73 @@
 // propagation reaches the same fixed point but gives other labels when
 // max_iters cuts it short.
 //
-// Design. One block per mask, two label buffers (the previous and the next
-// round), and a block-wide change flag by __syncthreads_or, which is also the
-// barrier between rounds. When both buffers fit a block's shared memory
-// (2 x 4 bytes per pixel, up to 29,056 pixels: 112x112 takes 100 KB) they
-// live there; larger masks (240x320) use two buffers per mask in device
-// memory scratch, which the same block-wide rounds read through L1/L2 (a
-// barrier makes one thread's global writes visible to its block).
-//
-// Bound. A mask's rounds are latency-bound on one SM: per round a thread
-// reads 9 labels per pixel it owns, and a round cannot start before the
-// previous one ends. Device-memory traffic is the mask in (1 byte per pixel)
-// and the labels out (4 bytes); many masks in flight fill the card.
+// The propagation is cluster_strips.cuh's (its note gives the bound and the
+// design): a label is one 32-bit word, background INT32_MAX, which no label
+// (at most H W - 1 < INT32_MAX) reaches, so the masked 3x3 minimum is
+// separable as it is for the extents. At 4 bytes a pixel a 240x320 mask's
+// strips fit a 4-CTA cluster's shared memory; larger masks take the
+// device-memory route.
 
 #include <cuda_runtime.h>
+
 #include <climits>
 #include <cstdint>
 
+#include "cluster_strips.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
+namespace cs = cluster_strips;
 
-__global__ void __launch_bounds__(kThreads)
-label_components_kernel(const uint8_t* __restrict__ masks,
-                        int32_t* __restrict__ out, int32_t* scratch, int H,
-                        int W, int max_iters, int in_smem) {
-  extern __shared__ int32_t smem[];
-  const int hw = H * W;
-  const size_t off = (size_t)blockIdx.x * hw;
-  int32_t* cur = in_smem ? smem : scratch + 2 * off;
-  int32_t* nxt = cur + hw;
-  const uint8_t* mask = masks + off;
-
-  for (int p = threadIdx.x; p < hw; p += kThreads) {
-    const int32_t l = mask[p] != 0 ? p : INT_MAX;
-    cur[p] = l;
-    nxt[p] = l;  // background keeps INT_MAX in both buffers
+struct Labels {
+  static constexpr int kPasses = 1;
+  static constexpr int kMaxChunks = 10;  // 320 columns, the frame's width
+  static constexpr uint32_t kBg = INT_MAX;
+  __device__ static uint32_t encode(int, int y, int x, int W) {
+    return (uint32_t)(y * W + x);
   }
-  __syncthreads();
-
-  for (int it = 0; it < max_iters; ++it) {
-    int changed = 0;
-    for (int p = threadIdx.x; p < hw; p += kThreads) {
-      const int32_t old = cur[p];
-      if (old == INT_MAX) continue;  // background
-      const int y = p / W, x = p - y * W;
-      int32_t m = old;
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= H) continue;
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int xx = x + dx;
-          if (xx < 0 || xx >= W) continue;
-          m = min(m, cur[yy * W + xx]);
-        }
-      }
-      changed |= m != old;
-      nxt[p] = m;
-    }
-    changed = __syncthreads_or(changed);
-    int32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-    if (!changed) break;
+  __device__ static uint32_t min(uint32_t a, uint32_t b) { return ::min(a, b); }
+  __device__ static void decode(int, uint32_t w, int32_t* const* out, size_t p) {
+    out[0][p] = (int32_t)w;
   }
+};
 
-  for (int p = threadIdx.x; p < hw; p += kThreads) out[off + p] = cur[p];
+template <int NCH>
+__global__ void __launch_bounds__(cs::kThreads)
+labels_cluster_kernel(cs::Args a) {
+  cs::propagate<Labels, NCH>(a);
 }
+
+__global__ void __launch_bounds__(cs::kDeviceThreads)
+labels_device_kernel(cs::Args a, int k) {
+  cs::device_step<Labels>(a, k);
+}
+
+struct Kernels {
+  using Policy = Labels;
+  template <int NCH>
+  static auto kernel() { return labels_cluster_kernel<NCH>; }
+  static auto step() { return labels_device_kernel; }
+};
 
 }  // namespace
 
-// Bytes of shared memory one mask needs for both buffers.
-int64_t label_components_smem_bytes(int64_t H, int64_t W) {
-  return 2 * 4 * H * W;
+// The route of an H x W mask: 0 on the cluster, 1 in device memory.
+int label_components_route(int H, int W) {
+  return cs::fits_cluster<Labels>(H, W) ? 0 : 1;
 }
 
-// Launches one block per mask on `stream`. masks: (B, H, W) bytes, 0 for
-// background; out: (B, H, W) int32; scratch: 2 x (B, H, W) int32, used (and
-// required) only when the buffers exceed max_smem bytes of shared memory.
+// Scratch bytes a launch of B masks of H x W needs (0 on the cluster).
+int64_t label_components_scratch_bytes(int B, int H, int W) {
+  return cs::scratch_bytes<Labels>(B, H, W);
+}
+
+// Launches the labelling of B masks on `st`. masks: (B, H, W) bytes, 0 for
+// background; out: (B, H, W) int32; `scratch` holds
+// label_components_scratch_bytes(B, H, W) bytes.
 cudaError_t label_components_launch(const uint8_t* masks, int32_t* out,
-                                    int32_t* scratch, int B, int H, int W,
-                                    int max_iters, int64_t max_smem,
-                                    cudaStream_t st) {
-  if (B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
-  const int64_t smem = label_components_smem_bytes(H, W);
-  const int in_smem = smem <= max_smem;
-  if (!in_smem && scratch == nullptr) return cudaErrorInvalidValue;
-  if (in_smem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        label_components_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  label_components_kernel<<<B, kThreads, in_smem ? smem : 0, st>>>(
-      masks, out, scratch, H, W, max_iters, in_smem);
-  return cudaGetLastError();
+                                    void* scratch, int B, int H, int W,
+                                    int max_iters, cudaStream_t st) {
+  int32_t* const outs[4] = {out, nullptr, nullptr, nullptr};
+  return cs::launch<Kernels>(masks, outs, scratch, B, H, W, max_iters, st);
 }

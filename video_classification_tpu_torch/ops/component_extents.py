@@ -6,11 +6,14 @@
 gets its 8-connected component's (min_row, max_row, min_col, max_col), by
 masked min/max propagation (Jacobi) until nothing changes, at most H + W
 iterations; background gets (INT32_MAX, -1, INT32_MAX, -1). See
-``csrc/component_extents.cu`` for the design on Hopper: the four fields
-packed as bytes of one word, a thread-block cluster of ``CLUSTER`` CTAs per
-mask, each owning a strip of rows, ``ITERS_PER_SYNC`` iterations between
-halo exchanges (both fixed when the kernel is compiled). H and W are at most
-``MAX_SIDE``.
+``csrc/component_extents.cu`` and ``csrc/cluster_strips.cuh`` for the design
+on Hopper: a thread-block cluster of ``CLUSTER`` CTAs per mask, each owning a
+strip of rows, ``ITERS_PER_SYNC`` iterations between halo exchanges (both
+fixed when the kernel is compiled); masks up to ``NARROW_SIDE`` on each side
+pack the four fields as bytes of one word, larger ones (up to ``MAX_SIDE``)
+as 16-bit fields in two passes of one word each, rows then columns. Masks
+whose strips do not fit a cluster's shared memory take a device-memory
+route of one launch per iteration.
 
 ``component_extents_reference`` is the same propagation with plain tensor
 ops: the CPU path and the kernel's oracle on the card.
@@ -25,8 +28,9 @@ import torch
 from ..utils import cuda
 
 INT32_MAX = 2 ** 31 - 1
-MAX_SIDE = 255  # the packed bytes' limit (csrc/component_extents.cu kMaxSide)
-CLUSTER = 4  # CTAs per mask (kCluster)
+NARROW_SIDE = 255  # the byte fields' limit (csrc/component_extents.cu kNarrowSide)
+MAX_SIDE = 65534  # the 16-bit fields' limit (kMaxSide)
+CLUSTER = 4  # CTAs per mask (csrc/cluster_strips.cuh kCluster)
 ITERS_PER_SYNC = 4  # iterations per halo exchange, at most (kItersPerSync)
 
 Extents = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -37,7 +41,8 @@ def component_extents(masks: torch.Tensor,
     """(B, H, W) bool/int masks -> 4 x (B, H, W) int32 extents.
 
     CPU tensors run ``component_extents_reference``; CUDA tensors launch the
-    kernel (and raise if it cannot build or launch)."""
+    kernel (and raise if it cannot build or launch, or a side exceeds
+    ``MAX_SIDE``)."""
     if masks.dim() != 3:
         raise ValueError(f"masks must be (B, H, W), got {tuple(masks.shape)}")
     b, h, w = masks.shape
@@ -45,6 +50,9 @@ def component_extents(masks: torch.Tensor,
         max_iters = h + w
     if masks.device.type == "cpu":
         return component_extents_reference(masks, max_iters)
+    if max(h, w) > MAX_SIDE:
+        raise ValueError(f"{h}x{w} masks exceed the kernel's 16-bit fields "
+                         f"(sides up to {MAX_SIDE})")
     outs = cuda.build().component_extents(masks, int(max_iters))
     component_extents.launches += 1
     return tuple(outs)

@@ -6,7 +6,8 @@ findContours -> boundingRect -> largest area -> reject < 15 px chain
 ``ops/component_extents.py``) followed by an argmax of the per-pixel bbox
 area. The max over pixels equals the max over components, and the argmax's
 first-maximum tie-break picks the component whose first (row-major) pixel
-comes first. Batched over a leading mask dimension.
+comes first. Batched over a leading mask dimension; on CUDA any side up to
+``component_extents.MAX_SIDE`` (65534), on the CPU any size.
 
 ``label_components`` (kernel K6, ``ops/label_components.py``) is re-exported
 here, where the JAX package has it.

@@ -9,7 +9,10 @@ Jacobi min-pooling over the 8 neighbours, masked to the foreground, until
 nothing changes or ``max_iters`` (default H + W) rounds ran. Each mask stops
 at its own fixed point, which further rounds would not change, so the
 result equals the Pallas kernel's fixed H + W rounds. See
-``csrc/label_components.cu`` for the design on Hopper.
+``csrc/label_components.cu`` and ``csrc/cluster_strips.cuh`` for the design
+on Hopper: the propagation of the component extents (K2) with int32 labels
+for words, on a thread-block cluster per mask when its strips fit the
+cluster's shared memory (240x320 does), else in device memory.
 
 ``label_components_reference`` is the JAX package's XLA loop with plain
 tensor ops: the CPU path and the kernel's oracle on the card.

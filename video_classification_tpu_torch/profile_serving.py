@@ -48,11 +48,11 @@ PORT_PREFIX = "(anonymous namespace)::"
 PORT_KERNELS = (
     ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
                     "flow_level_sor_tile_kernel", "finish_kernel")),
-    ("component_extents", ("extents_cluster_kernel",)),
+    ("component_extents", ("extents_cluster_kernel", "extents_device_kernel")),
     ("nms", ("nms_sorted_kernel",)),
     ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_tile_kernel")),
     ("warp_bilinear", ("warp_bilinear_kernel",)),
-    ("label_components", ("label_components_kernel",)),
+    ("label_components", ("labels_cluster_kernel", "labels_device_kernel")),
 )
 # The groups each flow path must launch; the other path's must not launch.
 FLOW_GROUPS = {"fused": ("flow_level",), "per-op": ("sor_solve", "warp_bilinear")}

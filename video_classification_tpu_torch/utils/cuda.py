@@ -20,9 +20,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
 SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
            "sor_solve.cu", "warp.cu", "label_components.cu")
 # Headers the .cu files include (sor_solve.cu and flow_level.cu share the
-# SOR tiles). ``load`` hashes only the sources, so ``cuda_flags`` carries a
+# SOR tiles, component_extents.cu and label_components.cu the cluster
+# strips). ``load`` hashes only the sources, so ``cuda_flags`` carries a
 # digest of the headers: editing one changes the flags and rebuilds.
-HEADERS = ("sor_tiles.cuh",)
+HEADERS = ("sor_tiles.cuh", "cluster_strips.cuh")
 # -fmad=false keeps every multiply and add separately rounded (no fused
 # multiply-add contraction), so a kernel performs the same float32 operations,
 # in the same order, as its plain PyTorch twin.
@@ -55,8 +56,9 @@ def resolve_device(device=None) -> torch.device:
 def build():
     """The kernel extension (one function per ``.cu`` file of ``SOURCES``:
     ``flow_level``, ``component_extents``, ``nms``, ``sor_solve``,
-    ``warp_bilinear``, ``label_components``), compiled at first use. Raises
-    with the compiler's output if the build fails."""
+    ``warp_bilinear``, ``label_components``; and ``component_extents_route``
+    and ``label_components_route``), compiled at first use. Raises with the
+    compiler's output if the build fails."""
     global _ext
     with _lock:
         if _ext is None:
