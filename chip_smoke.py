@@ -77,8 +77,31 @@ Phases, each fatal on failure:
      FlowParams(fuse_level="off"): K4, K5 and K2 must launch, K1 and K6
      must not;
  15. the per-op serving code at a small size on the card and on the CPU,
-     with n_inner 1 (fuse_level "off") and n_inner 2, at the bars of 8.
-Then one JSON line describing each kernel, the nvidia-smi line, and last
+     with n_inner 1 (fuse_level "off") and n_inner 2, at the bars of 8;
+ 16. slowfast-HTAH trained at full width (bf16 compute, float32 master
+     weights) on synthetic clips through engine/trainer.Trainer: batch 16
+     (or the largest of 8, 4 that fits), 3 warm-up and 20 timed train steps
+     on one batch (ms per step, clips/s, peak memory; the loss finite and
+     lower after 10 steps than at the first), then Trainer.train() for one
+     epoch of 32 videos with its eval and checkpoint saves;
+ 17. a fresh Trainer restores that save through tier 1 (equal state_dicts),
+     and tier 3 loads a synthesized pytorchvideo-grammar pickle (kept keys
+     equal to the file, the mismatched layers left at init);
+ 18. Trainer at full width from the online backend (synthetic detector,
+     default flow): four 130-frame 240x320 train videos and two test videos
+     through dataset_factory, train_epoch(0) in DEBUG (one batch of 4) and
+     run_eval(); the launch counts are zeroed before and read after each:
+     K1 and K2 must launch, K3-K6 must not; the seconds making the clips
+     against the step, the eval payload;
+ 19. a depth-18 train step and eval on the card and on the CPU from the same
+     weights, batch and crop offsets (float32, TF32 off, dropout 0): loss
+     within 1e-4 relative, gradients against float32's measured resolution
+     (gradient_gaps), running statistics and eval scores within 5e-3;
+ 20. each of the six bindings given one malformed input in a child process
+     of its own must raise a Python exception; a child ended by a signal
+     fails.
+Then one JSON line describing each kernel (with its launches per online
+train step, from 18), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero without a result when CUDA is
 unavailable.
 """
@@ -87,8 +110,10 @@ from __future__ import annotations
 
 import json
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor FLOP/s.
@@ -1009,16 +1034,9 @@ def check_goldens(dev):
 
 def synthetic_videos(n: int = 3):
     """n 130-frame 240x320 coherent-motion videos (rgb, depth) as numpy."""
-    import torch
+    from video_classification_tpu_torch.profile_train import synthetic_video
 
-    from video_classification_tpu_torch.utils.synthetic import coherent_motion_frames
-
-    videos = []
-    for r in range(n):
-        rgb = coherent_motion_frames(130, 240, 320, torch.Generator().manual_seed(10 + r))
-        depth = rgb.float().mean(-1, keepdim=True).to(torch.uint8)
-        videos.append((rgb.numpy(), depth.numpy()))
-    return videos
+    return [synthetic_video(10 + r) for r in range(n)]
 
 
 def htah_cfg(root: str):
@@ -1195,6 +1213,301 @@ def serve_small_detector_against_cpu(dev, root: str):
         raise AssertionError(f"card and cpu disagree: {worst}, {frac}, {err}")
 
 
+# -- the train/eval slice ---------------------------------------------------------
+
+
+def gradient_gaps(got, want, exact):
+    """(relative L2 over all tensors, worst per-tensor relative L2, worst
+    cosine, the bars) of the gradients ``got`` against ``want``, each a
+    {name: array}. The bars come from float32's resolution for this network,
+    measured: ``exact`` is ``want``'s computation in float64, and two float32
+    implementations may each sit as far from it as ``want`` does. Over all
+    tensors max(1e-3, 2 x want's distance), per tensor max(1e-3, 2 x the
+    largest per-tensor distance), cosine >= 0.999."""
+    import numpy as np
+
+    keys = sorted(want)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def flat(d):
+        return np.concatenate([np.asarray(d[k], np.float64).ravel() for k in keys])
+
+    worst = max(rel(got[k], want[k]) for k in keys)
+    cos = min(float(np.dot(got[k].ravel(), want[k].ravel())
+                    / (np.linalg.norm(got[k]) * np.linalg.norm(want[k]))) for k in keys)
+    bars = (max(1e-3, 2 * rel(flat(want), flat(exact))),
+            max(1e-3, 2 * max(rel(want[k], exact[k]) for k in keys)))
+    return rel(flat(got), flat(want)), worst, cos, bars
+
+
+def train_full_width(dev, root: str):
+    """[16] slowfast-HTAH trained at full width on synthetic clips through
+    Trainer: 3 warm-up and 20 timed train_steps on one repeated batch (the
+    largest of 16, 8, 4 that fits), then Trainer.train() for one epoch over
+    32 videos with its eval and checkpoint saves. Returns (the trainer, the
+    seconds per step, the batch)."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.data.dataset import train_batches
+    from video_classification_tpu_torch.engine import Trainer
+    from video_classification_tpu_torch.profile_train import train_cfg
+
+    for batch in (16, 8, 4):
+        cfg = train_cfg(root, batch, synthetic_videos=32, debug=False)
+        cfg.MODEL.MAX_EPOCH = 1
+        trainer = Trainer(cfg, device=dev)
+        b = next(train_batches(trainer.train_dataset, batch, seed=0))
+        x = torch.from_numpy(b["x"]).to(dev)
+        labels = torch.from_numpy(b["label"]).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            losses = [trainer.train_step(x, labels)["loss"] for _ in range(3)]
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"  batch {batch} does not fit in device memory; halving it")
+            del trainer, x, labels
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        losses.append(trainer.train_step(x, labels)["loss"])
+    losses = torch.stack(losses).tolist()  # synchronises through the loss
+    step_s = (time.perf_counter() - t0) / 20
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  model: depth {cfg.MODEL.DEPTH}, {cfg.CHALEARN.NUM_CLASS} classes, "
+        f"{trainer.mm.crop_size} px, CLIP_LEN {cfg.CHALEARN.CLIP_LEN}, "
+        f"{cfg.CUDA.COMPUTE_DTYPE} compute, {cfg.CUDA.PARAM_DTYPE} master weights; "
+        f"batch {batch}")
+    log(f"  train step: {step_s * 1e3:.3f} ms, {batch / step_s:.3f} clips/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} at the first step, "
+        f"{losses[10]:.4f} after 10, {losses[-1]:.4f} after 22")
+    if not np.isfinite(losses).all() or not losses[10] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: {losses}")
+    t0 = time.perf_counter()
+    best = trainer.train()
+    saved = sorted(p.name for p in trainer_ckpts(cfg))
+    log(f"  Trainer.train(): one epoch of {len(trainer.train_dataset)} videos, eval of "
+        f"{len(trainer.test_dataset)}, best acc {best:.4f}, saved {saved}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not saved:
+        raise AssertionError("Trainer.train() saved no checkpoint")
+    return trainer, step_s, batch
+
+
+def trainer_ckpts(cfg):
+    from video_classification_tpu_torch.engine import ckpt_dir
+
+    return list(ckpt_dir(cfg).glob("*.ckpt"))
+
+
+def checkpoint_round_trip(dev, trainer, root: str):
+    """[17] a fresh Trainer restores the saved checkpoint through tier 1,
+    equal state_dicts; tier 3 from a synthesized pytorchvideo-grammar pickle:
+    kept keys equal to the file, mismatched ones untouched."""
+    import pickle
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.engine import Trainer, load_torch_warmstart
+    from video_classification_tpu_torch.engine.checkpoint import MISMATCH_LAYERS
+
+    fresh = Trainer(trainer.cfg, device=dev)
+    want = trainer.model.state_dict()
+    got = fresh.model.state_dict()
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("tier 1 restored other weights than were saved")
+    rng = np.random.RandomState(5)
+    sd = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in want.items()}
+    sd["blocks.6.proj.weight"] = np.ones((400, want["blocks.6.proj.weight"].shape[1]), np.float32)
+    sd["blocks.6.proj.bias"] = np.ones((400,), np.float32)
+    for k in MISMATCH_LAYERS[:2]:  # the stems of a 3-channel Kinetics input
+        sd[k] = np.ones((sd[k].shape[0], 3) + sd[k].shape[2:], np.float32)
+    sd["blocks.0.multipathway_blocks.0.norm.num_batches_tracked"] = np.asarray(3)
+    path = Path(root) / "kinetics_synth.pyth"
+    path.write_bytes(pickle.dumps({"model_state": sd}))
+    before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+    kept = load_torch_warmstart(path, fresh.model)
+    after = fresh.model.state_dict()
+    for k, v in after.items():
+        ok = (torch.equal(v.cpu(), torch.from_numpy(sd[k])) if k in kept
+              else torch.equal(v, before[k]))
+        if not ok:
+            raise AssertionError(f"tier 3: {k} {'not loaded' if k in kept else 'changed'}")
+    log(f"  tier 1: {len(want)} tensors equal after a fresh Trainer restored "
+        f"{sorted(p.name for p in trainer_ckpts(trainer.cfg))[-1]}; tier 3: {len(kept)} "
+        f"keys loaded, {len(after) - len(kept)} mismatched left at init")
+
+
+def train_online(dev, root: str, videos, kernels, absent):
+    """[18] Trainer with the online backend at full width (synthetic
+    detector, default flow): four labelled 130-frame 240x320 training videos
+    and two test videos through dataset_factory; train_epoch(0) in DEBUG
+    (one batch of 4), then run_eval(). Returns the launches of the train
+    epoch (one step)."""
+    import numpy as np
+
+    from video_classification_tpu_torch.engine import Trainer
+    from video_classification_tpu_torch.profile_train import online_factory, train_cfg
+    from video_classification_tpu_torch.utils.profiling import StageTimer
+
+    cfg = train_cfg(root, 4)
+    timer = StageTimer(dev)
+    factory = online_factory({"train": videos[:4], "test": videos[4:6]},
+                             int(cfg.CHALEARN.NUM_CLASS), dev, timer)
+    trainer = Trainer(cfg, device=dev, dataset_factory=factory)
+    every = (*kernels, *absent)
+    for k in every:
+        k.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train_epoch(0)
+    epoch_s = time.perf_counter() - t0
+    train_counts = {k.__name__: k.launches for k in every}
+    making = dict(timer.seconds)
+    for k in every:
+        k.launches = 0
+    t0 = time.perf_counter()
+    y = trainer.run_eval()
+    eval_s = time.perf_counter() - t0
+    eval_counts = {k.__name__: k.launches for k in every}
+    make_s = sum(making.values())
+    log(f"  train_epoch(0): loss {metrics['loss']:.4f}, {epoch_s:.3f} s, of which making "
+        f"the 4 clips {make_s:.3f} s (stages {json.dumps({k: round(v, 4) for k, v in making.items()})}) "
+        f"and the step {epoch_s - make_s:.3f} s")
+    log(f"  launches in the train epoch (one step): {json.dumps(train_counts)}; "
+        f"in run_eval: {json.dumps(eval_counts)}")
+    log(f"  run_eval: {eval_s:.3f} s, ps {y['ps'].shape}, t {y['t'].tolist()}, "
+        f"sv {y['sv']}, acc {y['acc']:.4f}")
+    for counts, what in ((train_counts, "train epoch"), (eval_counts, "eval")):
+        for k in kernels:
+            if counts[k.__name__] == 0:
+                raise AssertionError(f"the online {what} never launched {k.__name__}")
+        for k in absent:
+            if counts[k.__name__] != 0:
+                raise AssertionError(f"the online {what} launched {k.__name__}")
+    if (not np.isfinite(metrics["loss"]) or y["sv"] != [2, 2] or y["ps"].shape != (4, 249)
+            or not np.allclose(y["ps"].sum(1), 1.0, atol=1e-4)):
+        raise AssertionError(f"online train/eval gave {metrics}, {y['ps'].shape}, {y['sv']}")
+    return train_counts
+
+
+def train_small_against_cpu(dev, root: str):
+    """[19] one train step and the eval of depth 18, CLIP_LEN 4, CropLHand,
+    float32 (TF32 off), dropout 0, on the card and on the CPU from the same
+    weights, batch and crop offsets: loss within 1e-4 relative, gradients
+    at the bars of gradient_gaps (against the CPU step in float64), running
+    statistics and eval scores within 5e-3."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.data.dataset import train_batches
+    from video_classification_tpu_torch.engine import Trainer
+
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = root
+    cfg.CHALEARN.NUM_CLASS = 3
+    cfg.CHALEARN.CLIP_LEN = 4
+    cfg.CHALEARN.BATCH_SIZE = 4
+    cfg.MODEL.NAME = "slowfast-small-train"
+    cfg.MODEL.R3D_INPUT = "CropLHand"
+    cfg.MODEL.DEPTH = 18
+    cfg.CUDA.COMPUTE_DTYPE = "float32"
+    cfg.DATA.SYNTHETIC_NUM_VIDEOS = 8
+    cfg.DATA.SYNTHETIC_SEQ_LEN = 6
+    cfg.DEBUG = True
+    f64 = cfg.clone()
+    f64.CUDA.COMPUTE_DTYPE = f64.CUDA.PARAM_DTYPE = "float64"
+    trainers = [Trainer(cfg, device=dev), Trainer(cfg, device="cpu"),
+                Trainer(f64, device="cpu")]
+    state = {k: v.cpu() for k, v in trainers[0].model.state_dict().items()}
+    for t in trainers:
+        t.model.load_state_dict(state)
+        t.model.blocks[6].dropout_rate = 0.0
+    b = next(train_batches(trainers[1].train_dataset, 4, seed=0))
+    x, labels = torch.from_numpy(b["x"]), torch.from_numpy(b["label"])
+    offsets = torch.tensor([[0, 3], [12, 5], [6, 6], [1, 11]])
+    gpu = trainers[0].train_step(x.to(dev), labels.to(dev), offsets=offsets.to(dev))
+    cpu = trainers[1].train_step(x, labels, offsets=offsets)
+    trainers[2].train_step(x, labels, offsets=offsets)
+    grads = [{k: p.grad.double().cpu().numpy() for k, p in t.model.named_parameters()}
+             for t in trainers]
+    loss_err = abs(float(gpu["loss"]) - float(cpu["loss"])) / abs(float(cpu["loss"]))
+    whole, worst, cos, bars = gradient_gaps(grads[0], grads[1], grads[2])
+    stats = max(float(((a.cpu() - b) / (5e-3 + 5e-3 * b.abs())).abs().max())
+                for (n, a), b in zip(trainers[0].model.state_dict().items(),
+                                     trainers[1].model.state_dict().values())
+                if "running_" in n)
+    ps = [t.run_eval()["ps"] for t in trainers[:2]]
+    score_err = float(np.abs(ps[0] - ps[1]).max())
+    log(f"  small train step card vs cpu: loss {float(gpu['loss']):.6f} vs "
+        f"{float(cpu['loss']):.6f} (rel {loss_err:.2e}); gradients rel L2 {whole:.2e} over "
+        f"all (bar {bars[0]:.2e}), worst tensor {worst:.2e} (bar {bars[1]:.2e}), min cosine "
+        f"{cos:.6f}; running stats at {stats:.3f} of the 5e-3 bar; max|dscore| {score_err:.2e}")
+    if (loss_err > 1e-4 or whole > bars[0] or worst > bars[1] or cos < 0.999
+            or stats > 1.0 or score_err > SCORE_ATOL):
+        raise AssertionError("the small train step disagrees between card and cpu")
+
+
+BINDING_CHILD = """
+import sys
+import torch
+from video_classification_tpu_torch.utils.cuda import build
+ext, d = build(), torch.device("cuda")
+z = torch.zeros((2, 8, 8), device=d)
+im = torch.zeros((2, 8, 8, 3), device=d)
+calls = {
+    "flow_level": lambda: ext.flow_level(im, im, z, z, 1, 1, 0.012, 1.8, 1e-6, 8, 0.0, [0, 0, 0]),
+    "sor_solve": lambda: ext.sor_solve(*([z] * 13), 1, 0.012, 1.8, [0, 0, 0]),
+    "component_extents": lambda: ext.component_extents(
+        torch.zeros((1, 65535, 1), dtype=torch.bool, device=d), 8),
+    "nms": lambda: ext.nms(torch.zeros((1, 20000, 4), device=d),
+                           torch.zeros((1, 20000), device=d), 4, 0.5),
+    "warp_bilinear": lambda: ext.warp_bilinear(im, z[:, :4], z),
+    "label_components": lambda: ext.label_components(torch.zeros((8, 8), device=d), 8),
+}
+try:
+    calls[sys.argv[1]]()
+    torch.cuda.synchronize()
+except Exception as e:
+    print(f"RAISED {type(e).__name__}: {str(e).splitlines()[0]}")
+"""
+
+
+def binding_errors():
+    """[20] each of the six bindings gets one malformed input that only the
+    binding's own checks refuse (the SOR schedule, a 65535-row mask, 20000
+    boxes, mismatched shapes), in a child process of its own: the child
+    must print the Python exception and exit 0; one ended by a signal fails
+    the phase."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    names = ("flow_level", "sor_solve", "component_extents", "nms", "warp_bilinear",
+             "label_components")
+    children = {n: subprocess.Popen([sys.executable, "-c", BINDING_CHILD, n], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for n in names}
+    failed = []
+    for n, child in children.items():
+        try:
+            out, err = child.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, err = child.communicate()
+        said = [line for line in out.splitlines() if line.startswith("RAISED")]
+        how = f"signal {-child.returncode}" if child.returncode < 0 else f"exit {child.returncode}"
+        log(f"  {n}: {how}, {said[0] if said else 'no exception: ' + err.strip()[-300:]}")
+        if child.returncode != 0 or not said:
+            failed.append(n)
+    if failed:
+        raise AssertionError(f"bindings without a Python exception: {failed}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1283,11 +1596,36 @@ def main() -> int:
     serve_small_against_cpu(dev, root, fuse_level="off")
     serve_small_against_cpu(dev, root, n_inner=2)
 
+    train_root = tempfile.mkdtemp(prefix="train_", dir=Path(root).parent)
+    try:
+        log("[16] training slowfast-HTAH at full width on synthetic clips")
+        # A checkpoint root per phase: a later Trainer must not restore an
+        # earlier phase's checkpoint through tier 1 or 2.
+        roots = {p: str(Path(train_root) / p) for p in ("full", "online", "small")}
+        trainer, step_s, step_batch = train_full_width(dev, roots["full"])
+        log("[17] checkpoint round trip: tier 1 into a fresh Trainer, tier 3")
+        checkpoint_round_trip(dev, trainer, roots["full"])
+        del trainer
+        torch.cuda.empty_cache()
+        log("[18] train and eval at full width from the online backend")
+        online_videos = synthetic_videos(6)
+        train_counts = train_online(dev, roots["online"], online_videos,
+                                    (flow_level, component_extents),
+                                    (nms, sor_solve, warp_bilinear, label_components))
+        log("[19] small train step: card vs cpu")
+        train_small_against_cpu(dev, roots["small"])
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
+    log("[20] a malformed input to each binding raises a Python exception")
+    binding_errors()
+
     def entry(name, source, replaces, launches, k, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"video_classification_tpu_torch/csrc/{source}",
                 "replaces": f"video_classification_tpu/{replaces}",
-                "launches": launches, "max_abs_err": k["max_abs_err"],
+                "launches": launches,
+                "launches_per_online_train_step": train_counts[name],
+                "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": library_ms}
 
@@ -1309,7 +1647,9 @@ def main() -> int:
         f"{json.dumps(synth_counts)}, request seconds {[round(x, 3) for x in synth_lat]}; "
         f"DensePose-detector request seconds {[round(x, 3) for x in latencies]}; "
         f"per-op launches {json.dumps(op_counts)}, request seconds "
-        f"{[round(x, 3) for x in op_lat]}; goldens {json.dumps(goldens)}")
+        f"{[round(x, 3) for x in op_lat]}; goldens {json.dumps(goldens)}; full-width "
+        f"train step {step_s * 1e3:.3f} ms at batch {step_batch} "
+        f"({step_batch / step_s:.3f} clips/s)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

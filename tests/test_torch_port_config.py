@@ -71,7 +71,8 @@ def test_model_cfg_matches_jax(name):
     port = _flat(load_model_cfg(name))
     ref = _flat(jax_load_model_cfg(name))
     shared = {k for k in ref if not k.startswith("TPU.")}
-    assert set(port) == shared | {"CUDA.COMPUTE_DTYPE", "CUDA.PARAM_DTYPE", "CUDA.SEED"}
+    assert set(port) == shared | {"CUDA.COMPUTE_DTYPE", "CUDA.PARAM_DTYPE", "CUDA.SEED",
+                                  "CUDA.PREFETCH_DEPTH"}
     for k in shared:
         assert port[k] == ref[k] and type(port[k]) is type(ref[k]), k
 

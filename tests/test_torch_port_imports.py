@@ -1,10 +1,11 @@
-"""Import hygiene and device policy of the PyTorch port.
+"""Import hygiene, device policy and build toolchain of the PyTorch port.
 
 Run in subprocesses, because tests/conftest.py imports jax:
-importing every module of ``video_classification_tpu_torch`` pulls in
-neither jax, flax nor the JAX package; ``chip_smoke.py`` refuses to run
-without CUDA, and outside a checkout. In-process: entry points default to
-CUDA and raise when there is none.
+importing every module of ``video_classification_tpu_torch`` (the train
+slice's among them) pulls in neither jax, flax, optax nor the JAX package;
+``chip_smoke.py`` refuses to run without CUDA, and outside a checkout.
+In-process: entry points default to CUDA and raise when there is none; the
+kernel build keeps a C++ compiler only if it links the shared libstdc++.
 """
 
 import ast
@@ -20,7 +21,9 @@ from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "video_classification_tpu_torch"
-FORBIDDEN = ("jax", "flax", "video_classification_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "video_classification_tpu")
+TRAIN_SLICE = ("data.dataset", "data.pipeline", "engine.trainer", "ops.segment",
+               "profile_train", "utils.labels", "utils.logging")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -38,10 +41,12 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {TRAIN_SLICE!r} if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -60,13 +65,15 @@ def test_no_jax_imports_in_source(path):
 
 def test_entry_points_raise_without_cuda():
     from video_classification_tpu_torch.config import get_cfg
-    from video_classification_tpu_torch.engine import Predictor
+    from video_classification_tpu_torch.engine import Predictor, Trainer
     from video_classification_tpu_torch.utils.cuda import resolve_device
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(get_cfg())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(get_cfg())
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -112,3 +119,41 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     launches = (flow_level, component_extents, nms, sor_solve, warp_bilinear,
                 label_components)
     assert all(k.launches == 0 for k in launches)
+
+
+def _fake_compiler(path, shared, static):
+    """A compiler script that answers -print-file-name like a GCC whose
+    library directories hold ``shared`` and ``static`` (paths or None)."""
+    path.write_text(
+        "#!/bin/sh\n"
+        f'case "$1" in -print-file-name=libstdc++.so) echo {shared or "libstdc++.so"} ;;\n'
+        f'  -print-file-name=libstdc++.a) echo {static or "libstdc++.a"} ;; esac\n')
+    path.chmod(0o755)
+    return str(path)
+
+
+def test_build_keeps_only_a_compiler_that_links_the_shared_cxx_runtime(tmp_path):
+    """A C++ compiler that would link the static libstdc++ (an extension
+    with its own copy crashes on a failed TORCH_CHECK with a formatted
+    message) is replaced by the system's c++ and cc."""
+    from video_classification_tpu_torch.utils.cuda import links_shared_libstdcxx, toolchain
+
+    lib = tmp_path / "lib"
+    lib.mkdir()
+    for name in ("libstdc++.so", "libstdc++.a"):
+        (lib / name).touch()
+    (tmp_path / "static").mkdir()
+    (tmp_path / "static" / "libstdc++.a").touch()
+    good = _fake_compiler(tmp_path / "good", lib / "libstdc++.so", lib / "libstdc++.a")
+    static_only = _fake_compiler(tmp_path / "static_only", None, tmp_path / "static" / "libstdc++.a")
+    static_first = _fake_compiler(tmp_path / "static_first", lib / "libstdc++.so",
+                                  tmp_path / "static" / "libstdc++.a")
+    assert links_shared_libstdcxx(good)
+    assert not links_shared_libstdcxx(static_only)
+    assert not links_shared_libstdcxx(static_first)
+    assert not links_shared_libstdcxx(str(tmp_path / "missing"))
+    assert toolchain({"CXX": good, "CC": "/x/cc"}) == {"CXX": good, "CC": "/x/cc"}
+    if not (shutil.which("c++") and links_shared_libstdcxx(shutil.which("c++"))):
+        pytest.skip("the system c++ does not link the shared libstdc++ here")
+    chosen = toolchain({"CXX": static_only, "CC": "/x/cc"})
+    assert chosen == {"CXX": shutil.which("c++"), "CC": shutil.which("cc")}

@@ -73,7 +73,7 @@ def test_virtual_window_matches_jax():
     cfg = get_cfg()
     cfg.MODEL.R3D_INPUT = "CropLHand"
     frames = np.zeros((30, 8, 8, 3), np.uint8)
-    ds = OnlineVideoDataset(cfg, videos={0: (frames, None)}, device="cpu")
+    ds = OnlineVideoDataset(cfg, "test", videos={0: (frames, None)}, device="cpu")
     for sampled in ([0, 1, 2], [3, 4, 5, 6], [5]):
         want = JaxDS._virtual_window(ds, sampled, 30)
         np.testing.assert_array_equal(ds._virtual_window(sampled, 30), want)

@@ -1,10 +1,10 @@
 """Default configuration tree.
 
 The JAX package's key surface (``config/defaults.py`` there), with its
-``TPU.*`` namespace replaced by ``CUDA.*``: the compute and parameter dtypes and
-the seed of random initialisation. The TPU layout knobs (mesh, remat, packed
-fast pathway, prefetch depth, buffer donation, compile cache) have no
-counterpart here.
+``TPU.*`` namespace replaced by ``CUDA.*``: the compute and parameter dtypes,
+the seed of random initialisation and of the trainer's generators, and the
+prefetch depth. The TPU layout knobs (mesh, remat, packed fast pathway,
+buffer donation, compile cache) have no counterpart here.
 """
 
 from pathlib import Path
@@ -62,7 +62,8 @@ _C.NUM_CPU = 18
 _C.CUDA = CfgNode()
 _C.CUDA.COMPUTE_DTYPE = "bfloat16"  # Activation dtype of the network.
 _C.CUDA.PARAM_DTYPE = "float32"     # Master weights.
-_C.CUDA.SEED = 0                    # Seed of random weight initialisation.
+_C.CUDA.SEED = 0                    # Seed of weight init, sampling, crops, dropout.
+_C.CUDA.PREFETCH_DEPTH = 1          # Train batches made ahead (data/pipeline.py).
 
 _C.DATA = CfgNode()
 # Input backend: 'auto' | 'cv2' | 'native' | 'online' (raw videos through the

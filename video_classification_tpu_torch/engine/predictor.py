@@ -52,7 +52,7 @@ class Predictor:
         if self._detector is None:
             self._detector = make_online_detector(self.cfg, self.device)
         fp = self._flow_params or flow_params_from_cfg(self.cfg)
-        return OnlineVideoDataset(self.cfg, detector=self._detector,
+        return OnlineVideoDataset(self.cfg, "test", detector=self._detector,
                                   flow_params=fp, labels=labels, videos=videos,
                                   device=self.device, timer=self.timer)
 

@@ -2,8 +2,9 @@
 
 Parameters live in the parameter dtype (float32) and each layer computes in
 its input's dtype (the compute dtype, bfloat16 on the card by default), as
-the JAX package's layers do. BatchNorm is the serving (eval) form with the
-JAX package's arithmetic: x * (rsqrt(var + eps) * scale) + (bias - mean * that).
+the JAX package's layers do. BatchNorm keeps the JAX package's
+``BatchNormLean`` arithmetic: x * (rsqrt(var + eps) * scale) + (bias - mean
+* that), with float32 batch statistics and the biased variance in training.
 GroupNorm keeps flax's arithmetic (float32 statistics, E[x^2] - E[x]^2).
 """
 
@@ -16,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention: running = m * running + (1 - m) * batch
 
 
 def same_pad(kernel: Sequence[int]):
@@ -85,28 +87,45 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm of an (N, C, ...) tensor of any rank, with running
+    """BatchNorm of an (N, C, ...) tensor of any rank, with running
     statistics (weight, bias, running_mean, running_var: the torch
-    state_dict names); detectron2's FrozenBatchNorm2d is the same function.
+    state_dict names); in eval mode detectron2's FrozenBatchNorm2d is the
+    same function.
 
-    Training mode is not supported here: the training slice must update the
-    running variance with the biased batch variance, as the JAX package does,
-    which ``torch.nn.BatchNorm3d`` does not."""
+    Training mode is the JAX package's ``BatchNormLean`` with
+    ``use_running_average=False``: float32 batch mean (float64 for a
+    float64 input, which only the tests' references use), the **biased**
+    variance max(E[x^2] - E[x]^2, 0), and running statistics updated by
+    flax's rule m * running + (1 - m) * batch with m = ``BN_MOMENTUM``,
+    outside the graph. ``torch.nn.BatchNorm3d`` would store the unbiased
+    variance instead."""
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, torch.float32)  # float64 only for float64 x
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm here is eval-only; call model.eval()")
-        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        shift = self.bias.float() - self.running_mean.float() * inv
+            axes = [0, *range(2, x.dim())]
+            xf = x.to(dt)
+            mean = xf.mean(dim=axes)
+            mean2 = (xf * xf).mean(dim=axes)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean.to(dt), self.running_var.to(dt)
+        inv = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        shift = self.bias.to(dt) - mean * inv
         view = (1, -1) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
 

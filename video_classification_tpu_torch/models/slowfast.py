@@ -17,7 +17,7 @@ reformulations of these same strided convs and are not needed here.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -191,21 +191,36 @@ class PoolConcatPathway(nn.Module):
 
 
 class ResNetBasicHead(nn.Module):
-    """Dropout -> linear over channels -> global mean over (T, H, W) in f32."""
+    """Dropout -> linear over channels -> global mean over (T, H, W) in f32.
+
+    Dropout is flax's (inverted: kept values scaled by 1 / (1 - rate)) and
+    runs only in training mode, with its mask drawn from the ``generator``
+    the caller passes (the trainer's, on the model's device); a rate of 0
+    turns it off."""
 
     def __init__(self, dim_in: int, num_classes: int, dropout_rate: float):
         super().__init__()
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = float(dropout_rate)
         self.proj = Linear(dim_in, num_classes)
 
-    def forward(self, x):
-        x = self.proj(self.dropout(x).permute(0, 2, 3, 4, 1))
+    def dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
+        if not self.training or self.dropout_rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("training-mode dropout needs an explicit torch.Generator")
+        keep = 1.0 - self.dropout_rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = self.proj(self.dropout(x, generator).permute(0, 2, 3, 4, 1))
         return x.float().mean(dim=(1, 2, 3))
 
 
 class SlowFast(nn.Module):
     """The full network: forward([slow (N,5,T,H,W), fast (N,15,T,H,W)]) ->
-    logits (N, num_classes) float32."""
+    logits (N, num_classes) float32. ``dropout_rate`` is the head's
+    (``blocks[6].dropout_rate``, settable)."""
 
     def __init__(self, num_classes: int, input_channels=(5, 15),
                  stem_dim_outs=(64, 8), depths=MODEL_STAGE_DEPTH[50],
@@ -240,13 +255,15 @@ class SlowFast(nn.Module):
                                       dropout_rate))
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the head's dropout mask in training mode."""
         if len(xs) != 2:
             raise ValueError("two pathways (slow, fast)")
         xs = list(xs)
         for block in self.blocks[:5]:
             xs = block(xs)
-        return self.blocks[6](self.blocks[5](xs))
+        return self.blocks[6](self.blocks[5](xs), generator)
 
 
 def init_my_slowfast(cfg, input_channels=(5, 15), stem_dim_outs=(64, 8)) -> SlowFast:

@@ -9,10 +9,13 @@ Port of the JAX package's ``ops/image.py``:
                                 content in a max(h, w) square, cubic-resize
                                 to a fixed square (chalearn_dataset.py:60-71);
   * ``shift2d``               - per-sample 2-D shift/crop with zero fill;
-  * ``normalize``             - (x/255 - 0.45)/0.225 (chalearn_dataset.py:41-46).
+  * ``normalize``             - (x/255 - 0.45)/0.225 (chalearn_dataset.py:41-46);
+  * ``random_crop_batch``     - torchvision-style RandomCrop of a clip batch
+                                with explicit offsets (``random_crop_offsets``
+                                draws them from a torch.Generator).
 
-The JAX package writes the shift as one-hot matmuls (a TPU layout choice);
-here it is an exact gather. The cubic resampling keeps the JAX form, a
+The JAX package writes the shift and the crop as one-hot matmuls (a TPU
+layout choice); here they are exact gathers. The cubic resampling keeps the JAX form, a
 per-sample (out, canvas) weight matrix applied by a matrix product.
 """
 
@@ -81,8 +84,9 @@ def shift2d(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
             out_hw: Sequence[int]) -> torch.Tensor:
     """out[s, y, x] = img[s, y + dy[s], x + dx[s]], zero outside the image.
 
-    img (S, H, W, C); dy, dx (S,) integer tensors. Exact for every dtype."""
-    s, h, w, _ = img.shape
+    img (S, H, W, ...) (any trailing dims, any strides); dy, dx (S,) integer
+    tensors. Exact for every dtype."""
+    s, h, w = img.shape[:3]
     oh, ow = int(out_hw[0]), int(out_hw[1])
     dev = img.device
     ys = torch.arange(oh, device=dev)[None, :] + dy.to(torch.int64)[:, None]
@@ -91,8 +95,8 @@ def shift2d(img: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
               & ((xs >= 0) & (xs < w))[:, None, :])             # (S, oh, ow)
     out = img[torch.arange(s, device=dev)[:, None, None],
               ys.clamp(0, h - 1)[:, :, None], xs.clamp(0, w - 1)[:, None, :]]
-    return torch.where(inside[..., None], out, torch.zeros((), dtype=img.dtype,
-                                                            device=dev))
+    inside = inside.view(inside.shape + (1,) * (img.dim() - 3))
+    return torch.where(inside, out, torch.zeros((), dtype=img.dtype, device=dev))
 
 
 def pad_to_square_resize(img: torch.Tensor, size: int, hw) -> torch.Tensor:
@@ -124,3 +128,35 @@ def normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     x = x.to(torch.float32)
     out = (x * (1.0 / 255.0) - NORM_MEAN) * (1.0 / NORM_STD)
     return out.to(dtype)
+
+
+def random_crop_offsets(n: int, h: int, w: int, size: int, padding: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """(n, 2) int64 window offsets (oy, ox) in the zero-padded frame, each
+    uniform over [0, h + 2 * padding - size] and [0, w + 2 * padding - size],
+    drawn from ``generator`` on its device."""
+    dev = generator.device
+    oy = torch.randint(0, h + 2 * padding - size + 1, (n,), generator=generator, device=dev)
+    ox = torch.randint(0, w + 2 * padding - size + 1, (n,), generator=generator, device=dev)
+    return torch.stack([oy, ox], dim=1)
+
+
+def random_crop_batch(clips: torch.Tensor, offsets: torch.Tensor, size: int,
+                      padding: int) -> torch.Tensor:
+    """RandomCrop of (N, T, H, W, C) clips: zero-pad ``padding`` on every
+    spatial side, then take the (size, size) window at ``offsets[n]`` =
+    (oy, ox), one window per sample shared by every frame and channel (the
+    JAX package's ``ops/image.random_crop_batch``, chalearn_dataset.py:73-87).
+    The zero fill lives in whatever space ``clips`` is in: call it on the
+    normalized tensor, as the reference does. Returns an (N, T, size, size,
+    C) view of the gathered window."""
+    off = offsets.to(device=clips.device, dtype=torch.int64)
+    out = shift2d(clips.permute(0, 2, 3, 1, 4), off[:, 0] - padding,
+                  off[:, 1] - padding, (size, size))      # (N, size, size, T, C)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def random_crop(clip: torch.Tensor, offset: torch.Tensor, size: int,
+                padding: int) -> torch.Tensor:
+    """``random_crop_batch`` of one (T, H, W, C) clip at ``offset`` (oy, ox)."""
+    return random_crop_batch(clip[None], offset.reshape(1, 2), size, padding)[0]

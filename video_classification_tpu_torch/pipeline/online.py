@@ -1,8 +1,9 @@
 """Online path: raw M_/K_ videos -> model-ready clips, nothing on disk.
 
-Port of the eval side of the JAX package's ``pipeline/online.py``: decode a
-video pair (or take decoded frames), cut stride-4 windows of ``CLIP_LEN``
-sampled frames (every IMG_SAMPLE_INTERVAL-th raw frame), detect per sampled
+Port of the JAX package's ``pipeline/online.py``: decode a video pair (or
+take decoded frames), cut a random train window or the stride-4 eval windows
+of ``CLIP_LEN`` sampled frames (every IMG_SAMPLE_INTERVAL-th raw frame),
+detect per sampled
 frame (cached per raw frame), and run the device preprocessing
 (``device_pipeline.preprocess_clip_on_device``) on each window's raw frames.
 The detector is ``synthetic`` (deterministic geometry) or ``densepose``
@@ -26,8 +27,9 @@ import torch
 from ..config.crop_cfg import crop_part_args, crop_resize_dict
 from ..data.dataset import MISSING_FILL, NUM_MODALITY_CHANNELS
 from ..ops.flow import FlowParams
-from ..ops.sampling import num_uniform_clips, uniform_clip_indices
+from ..ops.sampling import num_uniform_clips, random_clip_indices, uniform_clip_indices
 from ..utils.cuda import resolve_device
+from ..utils.labels import SETS, get_labels
 from .device_pipeline import Detections, preprocess_clip_on_device
 
 # detectron2 Base-RCNN-FPN pixel means of caffe2 (MSRA) backbones, BGR, unit
@@ -181,27 +183,40 @@ def _read_video(path, gray: bool) -> Optional[np.ndarray]:
 
 
 class OnlineVideoDataset:
-    """Eval clips of raw videos through the device preprocessing.
+    """Train and eval clips of raw videos through the device preprocessing:
+    the ``ChalearnVideoDataset`` contract (``get_train_clip``,
+    ``get_eval_clips``, ``num_eval_clips``, ``__len__``), with clips on the
+    device.
 
     ``labels`` lists (m_path, k_path, label) entries relative to
     ``CHALEARN.ROOT/CHALEARN.SAMPLE`` (absolute paths work too; a None k_path
-    means no depth video). ``videos`` maps an index to already decoded
-    (rgb (T, H, W, 3), depth (T, H, W, 1) or None) uint8 frames, which skips
-    decoding. ``timer`` (utils/profiling.StageTimer) records stage times:
-    'detect' here, 'flow' and 'crops' in the device pipeline."""
+    means no depth video); by default they are read from the set's label
+    file (utils/labels.get_labels). ``videos`` maps an index to already
+    decoded (rgb (T, H, W, 3), depth (T, H, W, 1) or None) uint8 frames,
+    which skips decoding (without ``labels``, each gets label 1).
+    ``timer`` (utils/profiling.StageTimer) records stage times: 'detect'
+    here, 'flow' and 'crops' in the device pipeline."""
 
-    def __init__(self, cfg, detector=None,
-                 flow_params: Optional[FlowParams] = None, labels=None,
-                 videos: Optional[Dict[int, Tuple]] = None, device=None,
-                 timer=None) -> None:
+    def __init__(self, cfg, name_of_set: str, sampling: Optional[str] = None,
+                 detector=None, flow_params: Optional[FlowParams] = None,
+                 labels=None, videos: Optional[Dict[int, Tuple]] = None,
+                 device=None, timer=None) -> None:
+        if name_of_set not in SETS:
+            raise ValueError(f"name_of_set must be one of {SETS}, got {name_of_set!r}")
         self.cfg = cfg
+        self.name_of_set = name_of_set
         self.device = resolve_device(device)
         self.clip_len = int(cfg.CHALEARN.CLIP_LEN)
         self.interval = int(cfg.CHALEARN.IMG_SAMPLE_INTERVAL)
         self.crop_folder = cfg.MODEL.R3D_INPUT
         self.crop_size = crop_resize_dict[self.crop_folder]
-        self.labels = list(labels) if labels is not None else [
-            (None, None, 1) for _ in sorted(videos or {})]
+        if labels is not None:
+            self.labels = list(labels)
+        elif videos is not None:
+            self.labels = [(None, None, 1) for _ in sorted(videos)]
+        else:
+            self.labels = get_labels(cfg, name_of_set)
+        self.sampling = sampling or ("random" if name_of_set == "train" else "uniform")
         self.detector = (detector if detector is not None
                          else make_online_detector(cfg, self.device))
         self.flow_params = flow_params or flow_params_from_cfg(cfg)
@@ -210,12 +225,15 @@ class OnlineVideoDataset:
         if not parts:
             raise ValueError(f"{self.crop_folder} is not a part-crop stream")
         self._parts = tuple(parts)
+        self._videos = {index: self._to_device(rgb, depth)
+                        for index, (rgb, depth) in (videos or {}).items()}
         self._decode_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        for index, (rgb, depth) in (videos or {}).items():
-            self._decode_cache[index] = self._to_device(rgb, depth)
         # Per-(video, raw frame) detections: stride-4 eval windows share
         # 16/20 sampled frames, so the detector sees each frame once.
         self._det_cache: Dict[int, Dict[int, Tuple]] = {}
+
+    def __len__(self) -> int:
+        return len(self.labels)
 
     def _to_device(self, rgb, depth) -> Tuple[torch.Tensor, torch.Tensor]:
         rgb = torch.as_tensor(rgb, dtype=torch.uint8)
@@ -227,6 +245,8 @@ class OnlineVideoDataset:
         return rgb.to(self.device), depth.to(self.device)
 
     def _decode(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if index in self._videos:
+            return self._videos[index]
         if index in self._decode_cache:
             return self._decode_cache[index]
         m_rel, k_rel, _ = self.labels[index]
@@ -300,6 +320,12 @@ class OnlineVideoDataset:
         if clip.shape != (s, self.crop_size, self.crop_size, NUM_MODALITY_CHANNELS):
             raise AssertionError(f"clip shape {tuple(clip.shape)}")
         return clip
+
+    def get_train_clip(self, index: int, rng: pyrandom.Random) -> Dict:
+        """One random CLIP_LEN window of video ``index``: {'x': (CLIP_LEN,
+        size, size, 21) uint8 on the device, 'label': 0-based}."""
+        idx = random_clip_indices(self._seq_len_sampled(index), self.clip_len, rng)
+        return {"x": self._make_clip(index, idx), "label": self.labels[index][2] - 1}
 
     def get_eval_clips(self, index: int, rng: pyrandom.Random) -> Dict:
         seq = self._seq_len_sampled(index)
