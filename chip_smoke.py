@@ -100,10 +100,39 @@ Phases, each fatal on failure:
  20. each of the six bindings given one malformed input in a child process
      of its own must raise a Python exception; a child ended by a signal
      fails.
+Then the ensemble slice:
+ 21. the five part streams of engine/sparse.PART_YAMLS at full width
+     (SlowFast-R50, 249 classes, CLIP_LEN 20, bf16, seeded random weights;
+     CropHTAH 192, the arms 128, the hands 64): ResultSaver dumps train and
+     test materials through each stream's Trainer from synthetic datasets
+     of 8 videos, SparseTrainer trains the fusion for 20 epochs and
+     checkpoints (on to 2000 epochs if no test beat accuracy 0), and
+     EnsemblePredictor loads that checkpoint and serves the three videos of
+     6 through predict_frames, with per-request seconds and per-stream stage
+     seconds; the launch counts are zeroed just before and read just after:
+     K1 and K2 exactly 5x their counts in 6, K3-K6 none; probs sum to 1;
+ 22. the five-stream ensemble at depth 18, float32, on the card and on the
+     CPU with the same stream and fusion weights: fused probs and per-stream
+     scores within 5e-3, the same top-1;
+ 23. SparseTrainer at full size (P 5, C 249, 35,878 train and 6,271 test
+     clips, IsoGD's split sizes, synthesized): ms per epoch over 20 epochs
+     at batch 500, test() ms, peak memory, the seconds projected for 2000;
+ 24. res3d (batch 30, CLIP_LEN 20) and res2d (batch 60, CLIP_LEN 10, a
+     50-channel stem), CropHTAH 192, 249 classes, bf16, trained at full
+     width on synthetic clips (as 16: ms per step, clips/s, peak memory, a
+     falling loss), then each served through Predictor.predict_frames (K1
+     and K2 launch, K3-K6 do not);
+ 25. a depth-18 res3d and res2d train step on the card and on the CPU, at
+     the bars of 19, which also admit twice the card's own float32 spread
+     (its gradient with the batch rows permuted); the card's float64 step
+     within 1e-6 of the CPU's;
+ 26. ``python -m video_classification_tpu_torch`` in a subprocess on the
+     card: sparse-train on 21's materials and tools how-many-classes, both
+     exit 0.
 Then one JSON line describing each kernel (with its launches per online
-train step, from 18), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Exits non-zero without a result when CUDA is
-unavailable.
+train step, from 18, and per ensemble request, from 21), the nvidia-smi
+line, and last {"ok": true, "device": {...}}. Exits non-zero without a
+result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -1057,17 +1086,19 @@ def full_width_detector(dev, root: str):
 
 
 def serve_full_width(dev, root: str, videos, kernels, detector=None,
-                     flow_params=None, absent=()):
-    """Three requests through Predictor.predict_frames; ``kernels`` (which
-    must launch) and ``absent`` (which must not) are the wrappers whose
-    launch counts are zeroed just before and read just after. Returns
-    (counts of both, latencies, the detections the detector gave)."""
+                     flow_params=None, absent=(), name="slowfast-HTAH", clips=2):
+    """Three requests through Predictor.predict_frames of the stream
+    ``name`` (each giving ``clips`` clip windows); ``kernels`` (which must
+    launch) and ``absent`` (which must not) are the wrappers whose launch
+    counts are zeroed just before and read just after. Returns (counts of
+    both, latencies, the detections the detector gave)."""
     import numpy as np
 
+    from video_classification_tpu_torch.config import load_model_cfg
     from video_classification_tpu_torch.engine import Predictor
     from video_classification_tpu_torch.utils.profiling import StageTimer
 
-    cfg = htah_cfg(root)
+    cfg = load_model_cfg(name, ["CHALEARN.ROOT", root])
     timer = StageTimer(dev)
     seen = []
 
@@ -1096,8 +1127,8 @@ def serve_full_width(dev, root: str, videos, kernels, detector=None,
             raise AssertionError(f"request {r}: bad probabilities {probs.shape}")
         if abs(float(probs.sum()) - 1.0) > 1e-4:
             raise AssertionError(f"request {r}: probabilities sum to {probs.sum()}")
-        if y["clips"] != 2:
-            raise AssertionError(f"request {r}: {y['clips']} clip windows, expected 2")
+        if y["clips"] != clips:
+            raise AssertionError(f"request {r}: {y['clips']} clip windows, expected {clips}")
         log(f"  request {r}: {y['clips']} clips, {latencies[-1]:.3f} s, top-5 "
             + ", ".join(f"{c}:{p:.4f}" for c, p in y["top"]))
         log(f"    stage seconds: {json.dumps({k: round(v, 4) for k, v in timer.seconds.items()})}")
@@ -1395,12 +1426,33 @@ def train_online(dev, root: str, videos, kernels, absent):
     return train_counts
 
 
-def train_small_against_cpu(dev, root: str):
-    """[19] one train step and the eval of depth 18, CLIP_LEN 4, CropLHand,
-    float32 (TF32 off), dropout 0, on the card and on the CPU from the same
-    weights, batch and crop offsets: loss within 1e-4 relative, gradients
-    at the bars of gradient_gaps (against the CPU step in float64), running
-    statistics and eval scores within 5e-3."""
+def no_dropout(model) -> None:
+    """Head dropout rate 0 (SlowFast's and Res3D's heads; res2d has none)."""
+    from video_classification_tpu_torch.models.slowfast import ResNetBasicHead
+
+    for m in model.modules():
+        if isinstance(m, ResNetBasicHead):
+            m.dropout_rate = 0.0
+
+
+def train_small_against_cpu(dev, root: str, name: str = "slowfast-small-train",
+                            card_spread: bool = False):
+    """[19], [25] one train step and the eval of the model ``name``
+    (MODEL.NAME) at depth 18, CLIP_LEN 4, CropLHand, float32 (TF32 off),
+    dropout 0, on the card and on the CPU from the same weights, batch and
+    crop offsets: loss within 1e-4 relative, gradients at the bars of
+    gradient_gaps (against the CPU step in float64), running statistics and
+    eval scores within 5e-3.
+
+    With ``card_spread`` ([25]) the card's float64 step must give the CPU's
+    float64 gradient within 1e-6 (the same function), and the gradient bars
+    also admit twice the card's own float32 spread: its gradient with the
+    batch rows permuted, as tests/test_torch_port_trainer.py measures the
+    JAX package's. The CPU's float32 gradient can sit far closer to the
+    float64 one than float32 resolves on the card, whose convolutions sum in
+    other orders (BatchNorm's E[x^2] - E[x]^2 over few values amplifies such
+    differences); the phase prints the spread and the float64 gap beside the
+    bars."""
     import numpy as np
     import torch
 
@@ -1413,7 +1465,7 @@ def train_small_against_cpu(dev, root: str):
     cfg.CHALEARN.NUM_CLASS = 3
     cfg.CHALEARN.CLIP_LEN = 4
     cfg.CHALEARN.BATCH_SIZE = 4
-    cfg.MODEL.NAME = "slowfast-small-train"
+    cfg.MODEL.NAME = name
     cfg.MODEL.R3D_INPUT = "CropLHand"
     cfg.MODEL.DEPTH = 18
     cfg.CUDA.COMPUTE_DTYPE = "float32"
@@ -1424,27 +1476,43 @@ def train_small_against_cpu(dev, root: str):
     f64.CUDA.COMPUTE_DTYPE = f64.CUDA.PARAM_DTYPE = "float64"
     trainers = [Trainer(cfg, device=dev), Trainer(cfg, device="cpu"),
                 Trainer(f64, device="cpu")]
+    if card_spread:  # the card's float32 step on permuted rows, its float64 step
+        trainers += [Trainer(cfg, device=dev), Trainer(f64, device=dev)]
     state = {k: v.cpu() for k, v in trainers[0].model.state_dict().items()}
     for t in trainers:
         t.model.load_state_dict(state)
-        t.model.blocks[6].dropout_rate = 0.0
+        no_dropout(t.model)
     b = next(train_batches(trainers[1].train_dataset, 4, seed=0))
     x, labels = torch.from_numpy(b["x"]), torch.from_numpy(b["label"])
     offsets = torch.tensor([[0, 3], [12, 5], [6, 6], [1, 11]])
     gpu = trainers[0].train_step(x.to(dev), labels.to(dev), offsets=offsets.to(dev))
     cpu = trainers[1].train_step(x, labels, offsets=offsets)
     trainers[2].train_step(x, labels, offsets=offsets)
+    if card_spread:
+        rows = torch.tensor([2, 0, 3, 1])
+        trainers[3].train_step(x[rows].to(dev), labels[rows].to(dev),
+                               offsets=offsets[rows].to(dev))
+        trainers[4].train_step(x.to(dev), labels.to(dev), offsets=offsets.to(dev))
     grads = [{k: p.grad.double().cpu().numpy() for k, p in t.model.named_parameters()}
              for t in trainers]
     loss_err = abs(float(gpu["loss"]) - float(cpu["loss"])) / abs(float(cpu["loss"]))
     whole, worst, cos, bars = gradient_gaps(grads[0], grads[1], grads[2])
+    if card_spread:
+        spread_all, spread_each = gradient_gaps(grads[3], grads[0], grads[2])[:2]
+        f64_err = gradient_gaps(grads[4], grads[2], grads[2])[0]
+        log(f"  {name}: the card's float64 gradient {f64_err:.2e} from the CPU's; its float32 "
+            f"gradient moves by {spread_all:.2e} over all, {spread_each:.2e} worst tensor, "
+            f"with the batch rows permuted")
+        if f64_err > 1e-6:
+            raise AssertionError(f"{name}: the card's float64 step differs from the CPU's")
+        bars = (max(bars[0], 2 * spread_all), max(bars[1], 2 * spread_each))
     stats = max(float(((a.cpu() - b) / (5e-3 + 5e-3 * b.abs())).abs().max())
                 for (n, a), b in zip(trainers[0].model.state_dict().items(),
                                      trainers[1].model.state_dict().values())
                 if "running_" in n)
     ps = [t.run_eval()["ps"] for t in trainers[:2]]
     score_err = float(np.abs(ps[0] - ps[1]).max())
-    log(f"  small train step card vs cpu: loss {float(gpu['loss']):.6f} vs "
+    log(f"  small {name} train step card vs cpu: loss {float(gpu['loss']):.6f} vs "
         f"{float(cpu['loss']):.6f} (rel {loss_err:.2e}); gradients rel L2 {whole:.2e} over "
         f"all (bar {bars[0]:.2e}), worst tensor {worst:.2e} (bar {bars[1]:.2e}), min cosine "
         f"{cos:.6f}; running stats at {stats:.3f} of the 5e-3 bar; max|dscore| {score_err:.2e}")
@@ -1506,6 +1574,275 @@ def binding_errors():
             failed.append(n)
     if failed:
         raise AssertionError(f"bindings without a Python exception: {failed}")
+
+
+# -- the ensemble slice: sparse fusion, the res models, the CLI --------------------
+
+
+def fusion_ckpts(root: str):
+    """The fusion checkpoints under ``root``, sorted."""
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.engine.sparse import fusion_ckpt_dir
+
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = root
+    d = fusion_ckpt_dir(cfg)
+    return sorted(d.iterdir()) if d.is_dir() else []
+
+
+def ensemble_full_width(dev, root: str, videos, kernels, absent, serving_counts):
+    """[21] the five part streams at full width (SlowFast-R50, 249 classes,
+    CLIP_LEN 20, bf16, seeded random weights; CropHTAH 192, the arms 128,
+    the hands 64): ResultSaver dumps train and test materials through each
+    stream's Trainer from synthetic datasets of 8 videos, SparseTrainer
+    trains the fusion for 20 epochs (on, to SPARSE_EPOCHS, if no test
+    improved on accuracy 0: the streams' random weights carry little
+    signal) and checkpoints, and EnsemblePredictor loads that checkpoint and
+    serves the three videos through predict_frames. ``kernels`` must launch
+    exactly 5x their ``serving_counts`` of [6] (the same three videos, one
+    stream), ``absent`` not at all. Returns (counts, latencies)."""
+    import numpy as np
+
+    from video_classification_tpu_torch.config import load_model_cfg
+    from video_classification_tpu_torch.engine import (EnsemblePredictor, ResultSaver,
+                                                       SparseTrainer)
+    from video_classification_tpu_torch.engine.sparse import PART_YAMLS, SPARSE_EPOCHS
+    from video_classification_tpu_torch.utils.profiling import StageTimer
+
+    overrides = ["CHALEARN.ROOT", root, "DATA.SYNTHETIC_NUM_VIDEOS", "8"]
+    t0 = time.perf_counter()
+    written = ResultSaver(cfg_overrides=overrides, device=dev).save_network_output()
+    log(f"  ResultSaver: {len(written)} materials of the {len(PART_YAMLS)} streams in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    st = SparseTrainer(load_model_cfg("slowfast-HTAH", overrides), device=dev)
+    ds = st.train_dataset
+    if ((ds.num_part, ds.num_class, len(ds.sv), int(ds.sv.sum())) != (5, 249, 8, ds.num_n)
+            or ds.part_names != sorted(PART_YAMLS)):
+        raise AssertionError(f"materials {ds.PS.shape} of {ds.part_names}, sv {ds.sv}")
+    epochs = 20
+    best = st.train(epochs=epochs)
+    if not fusion_ckpts(root):
+        log(f"  no fusion checkpoint after {epochs} epochs (best accuracy {best}); "
+            f"training on to {SPARSE_EPOCHS}")
+        best = st.train(epochs=SPARSE_EPOCHS - epochs)
+        epochs = SPARSE_EPOCHS
+    ckpts = fusion_ckpts(root)
+    log(f"  SparseTrainer: {epochs} epochs, best accuracy {best:.4f}, checkpoints "
+        f"{[c.name for c in ckpts]}; {time.perf_counter() - t0:.2f} s")
+    if not ckpts:
+        raise AssertionError("SparseTrainer wrote no fusion checkpoint")
+    del st
+
+    t0 = time.perf_counter()
+    ens = EnsemblePredictor(cfg_overrides=["CHALEARN.ROOT", root], device=dev)
+    for p in ens.predictors:
+        p.timer = StageTimer(dev)
+    log(f"  EnsemblePredictor: streams {ens.part_yamls}, crops "
+        f"{[p.mm.crop_size for p in ens.predictors]}; built in {time.perf_counter() - t0:.2f} s")
+    for k in (*kernels, *absent):
+        k.launches = 0
+    latencies = []
+    for r, (rgb, depth) in enumerate(videos):
+        t0 = time.perf_counter()
+        y = ens.predict_frames(rgb, depth, top_k=5)
+        latencies.append(time.perf_counter() - t0)
+        probs = y["probs"]
+        if (probs.shape != (249,) or not np.isfinite(probs).all()
+                or abs(float(probs.sum()) - 1.0) > 1e-4):
+            raise AssertionError(f"request {r}: bad probabilities {probs.shape}, "
+                                 f"sum {probs.sum()}")
+        if y["clips"] != 2 or list(y["per_stream"]) != sorted(PART_YAMLS):
+            raise AssertionError(f"request {r}: {y['clips']} clips, {list(y['per_stream'])}")
+        log(f"  request {r}: {latencies[-1]:.3f} s, top-5 "
+            + ", ".join(f"{c}:{p:.4f}" for c, p in y["top"]))
+        for name, p in zip(ens.part_yamls, ens.predictors):
+            log(f"    {name} stage seconds: "
+                f"{json.dumps({k: round(v, 4) for k, v in p.timer.seconds.items()})}")
+            p.timer.seconds.clear()
+    if ens.fusion_source != str(ckpts[-1]):
+        raise AssertionError(f"the ensemble fused with {ens.fusion_source}, not {ckpts[-1]}")
+    counts = {k.__name__: k.launches for k in (*kernels, *absent)}
+    log(f"  launches on the ensemble path ({len(videos)} requests): {json.dumps(counts)}; "
+        f"the fusion from {ens.fusion_source}")
+    for k in kernels:
+        if counts[k.__name__] != 5 * serving_counts[k.__name__]:
+            raise AssertionError(f"{k.__name__}: {counts[k.__name__]} launches, expected 5 x "
+                                 f"{serving_counts[k.__name__]} of one stream")
+    for k in absent:
+        if counts[k.__name__] != 0:
+            raise AssertionError(f"the ensemble launched {k.__name__}")
+    return counts, latencies
+
+
+def ensemble_small_against_cpu(dev, root: str):
+    """[22] the five-stream ensemble at depth 18, CLIP_LEN 2, 5 classes,
+    float32 on the card and on the CPU with the same stream weights and
+    fusion parameters, on a 34-frame 64x96 video: fused probs within 5e-3,
+    the same top-1, clips and per-stream scores."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.engine import EnsemblePredictor
+    from video_classification_tpu_torch.utils.synthetic import coherent_motion_frames
+
+    overrides = ["CHALEARN.ROOT", root, "MODEL.DEPTH", "18", "CHALEARN.CLIP_LEN", "2",
+                 "CHALEARN.NUM_CLASS", "5", "CUDA.COMPUTE_DTYPE", "float32"]
+    rng = np.random.RandomState(4)
+    fusion = {"weight": rng.normal(1.0, 0.5, (5, 5)).astype(np.float32),
+              "bias": rng.normal(0.0, 0.2, (5,)).astype(np.float32)}
+    gpu = EnsemblePredictor(cfg_overrides=overrides, device=dev, fusion_params=fusion)
+    cpu = EnsemblePredictor(cfg_overrides=overrides, device="cpu", fusion_params=fusion)
+    for g, c in zip(gpu.predictors, cpu.predictors):
+        c.model.load_state_dict(g.model.state_dict())
+    rgb = coherent_motion_frames(34, 64, 96, torch.Generator().manual_seed(3)).numpy()
+    yg, yc = gpu.predict_frames(rgb), cpu.predict_frames(rgb)
+    err = float(np.abs(yg["probs"] - yc["probs"]).max())
+    stream_err = max(abs(yg["per_stream"][n] - yc["per_stream"][n]) for n in yc["per_stream"])
+    log(f"  small ensemble card vs cpu: {yg['clips']} clips, max|dprob| {err:.3e}, "
+        f"max|dper_stream| {stream_err:.3e}, top-1 {yg['top'][0][0]} vs {yc['top'][0][0]}")
+    if (err > SCORE_ATOL or stream_err > SCORE_ATOL or yg["clips"] != yc["clips"]
+            or yg["top"][0][0] != yc["top"][0][0]):
+        raise AssertionError("the small ensemble disagrees between card and cpu")
+
+
+def sparse_full_size(dev, root: str):
+    """[23] SparseTrainer at full size: P 5, C 249, 35,878 train and 6,271
+    test clips (IsoGD's split sizes, one clip per video), synthesized
+    materials; batch 500. One warm-up epoch, then 20 timed epochs (host
+    clock, synchronised through the losses), test() (after a first call
+    that may checkpoint), peak device memory, and the seconds projected for
+    SPARSE_EPOCHS epochs with a test every TEST_EVERY."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.config import load_model_cfg
+    from video_classification_tpu_torch.engine import SparseTrainer
+    from video_classification_tpu_torch.engine.sparse import (PART_YAMLS, SPARSE_EPOCHS,
+                                                              TEST_EVERY, sparse_dir)
+
+    cfg = load_model_cfg("slowfast-HTAH", ["CHALEARN.ROOT", root])
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    for name_of_set, n in (("train", 35878), ("test", 6271)):
+        t = rng.integers(0, 249, n).astype(np.int32)
+        d = sparse_dir(cfg, name_of_set)
+        d.mkdir(parents=True, exist_ok=True)
+        for name in PART_YAMLS:
+            logits = rng.standard_normal((n, 249), dtype=np.float32)
+            logits[np.arange(n), t] += 1.0
+            ps = np.exp(logits)
+            ps /= ps.sum(1, keepdims=True)
+            with (d / name).open("wb") as f:
+                pickle.dump({"ps": ps, "t": t, "acc": 0.0, "sv": [1] * n}, f)
+    made = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = SparseTrainer(cfg, device=dev)
+    load_s = time.perf_counter() - t0
+    st.train_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = torch.stack([st.train_epoch() for _ in range(20)]).tolist()
+    epoch_ms = (time.perf_counter() - t0) / 20 * 1e3
+    st.test(20)
+    t0 = time.perf_counter()
+    acc = st.test(21)
+    test_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    projected = (SPARSE_EPOCHS * epoch_ms + SPARSE_EPOCHS // TEST_EVERY * test_ms) / 1e3
+    n = st.x_train.shape[0]
+    log(f"  materials {tuple(st.x_train.shape)} train, {tuple(st.x_test.shape)} test "
+        f"({(st.x_train.numel() + st.x_test.numel()) * 4 / 1e6:.1f} MB; written in "
+        f"{made:.2f} s, loaded in {load_s:.2f} s); {-(-n // st.batch_size)} Adam steps per epoch")
+    log(f"  {epoch_ms:.3f} ms per epoch, test() {test_ms:.3f} ms, peak memory "
+        f"{peak / 2**20:.1f} MiB; {SPARSE_EPOCHS} epochs projected {projected:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, test accuracy {acc:.4f}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the fusion loss did not fall: {losses}")
+    return epoch_ms, test_ms, projected
+
+
+def train_res_full_width(dev, root: str, name: str, videos, kernels, absent):
+    """[24] the res model ``name`` (its yaml: res3d batch 30, CLIP_LEN 20;
+    res2d batch 60, CLIP_LEN 10, a 50-channel stem; CropHTAH 192, 249
+    classes, bf16 compute) trained at full width on synthetic clips: 3
+    warm-up and 20 timed train_steps on one batch (ms, clips/s, peak
+    memory, the loss finite and lower after 10 steps than at the first),
+    then served through Predictor.predict_frames on the three videos (K1
+    and K2 launch, ``absent`` do not). Returns (seconds per step, batch,
+    peak bytes, serving counts, latencies)."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.config import load_model_cfg
+    from video_classification_tpu_torch.data.dataset import train_batches
+    from video_classification_tpu_torch.engine import Trainer
+    from video_classification_tpu_torch.ops.sampling import num_uniform_clips
+
+    cfg = load_model_cfg(name, ["CHALEARN.ROOT", root])
+    batch = int(cfg.CHALEARN.BATCH_SIZE)
+    cfg.DATA.SYNTHETIC_NUM_VIDEOS = batch
+    cfg.DATA.SYNTHETIC_SEQ_LEN = 24
+    cfg.DEBUG = True  # no checkpoint: the serving below keeps the seeded weights
+    trainer = Trainer(cfg, device=dev)
+    b = next(train_batches(trainer.train_dataset, batch, seed=0))
+    x = torch.from_numpy(b["x"]).to(dev)
+    labels = torch.from_numpy(b["label"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(x, labels)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        losses.append(trainer.train_step(x, labels)["loss"])
+    losses = torch.stack(losses).tolist()
+    step_s = (time.perf_counter() - t0) / 20
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: depth {cfg.MODEL.DEPTH}, {cfg.CHALEARN.NUM_CLASS} classes, "
+        f"{trainer.mm.crop_size} px, CLIP_LEN {cfg.CHALEARN.CLIP_LEN}, input "
+        f"{tuple(trainer.mm.normalize_and_prepare(x[:1]).shape[1:])}, "
+        f"{cfg.CUDA.COMPUTE_DTYPE} compute; batch {batch}")
+    log(f"  train step: {step_s * 1e3:.3f} ms, {batch / step_s:.3f} clips/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} at the first step, "
+        f"{losses[10]:.4f} after 10, {losses[-1]:.4f} after 22")
+    if not np.isfinite(losses).all() or not losses[10] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall on a repeated batch: {losses}")
+    del trainer, x, labels
+    torch.cuda.empty_cache()
+    clips = num_uniform_clips(-(-videos[0][0].shape[0] // int(cfg.CHALEARN.IMG_SAMPLE_INTERVAL)),
+                              int(cfg.CHALEARN.CLIP_LEN))
+    counts, latencies, _ = serve_full_width(dev, root, videos, kernels, absent=absent,
+                                            name=name, clips=clips)
+    return step_s, batch, peak, counts, latencies
+
+
+def cli_on_card(ensemble_root: str, labels):
+    """[26] ``python -m video_classification_tpu_torch`` in a subprocess on
+    the card: ``sparse-train`` on [21]'s materials (SPARSE_EPOCHS epochs)
+    and ``tools how-many-classes`` on a labels file of ``labels``; both must
+    exit 0, the second print the labels' min, max and class count."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    labels_txt = Path(ensemble_root) / "labels.txt"
+    labels_txt.write_text("".join(f"train/M_{i:05d}.avi train/K_{i:05d}.avi {label}\n"
+                                  for i, label in enumerate(labels)))
+    want = f"{min(labels)} {max(labels)} {len(set(labels))}"
+    for args in (["sparse-train", "--root", ensemble_root],
+                 ["tools", "how-many-classes", str(labels_txt)]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "video_classification_tpu_torch", *args],
+                             cwd=here, capture_output=True, text=True, timeout=900)
+        tail = (out.stdout.strip().splitlines() or [""])[-1]
+        log(f"  {' '.join(args[:2])}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s; last line: {tail}")
+        if out.returncode != 0:
+            raise AssertionError(f"the CLI failed: {out.stderr.strip()[-2000:]}")
+    if not out.stdout.startswith(want):
+        raise AssertionError(f"how-many-classes printed {out.stdout!r}, expected {want!r}")
 
 
 def main() -> int:
@@ -1619,12 +1956,39 @@ def main() -> int:
     log("[20] a malformed input to each binding raises a Python exception")
     binding_errors()
 
+    ens_root = tempfile.mkdtemp(prefix="ensemble_", dir=Path(root).parent)
+    try:
+        roots = {p: str(Path(ens_root) / p) for p in ("ensemble", "small", "sparse", "res3d",
+                                                       "res2d", "small_res3d", "small_res2d")}
+        log("[21] the five-stream ensemble at full width: ResultSaver, SparseTrainer, "
+            "EnsemblePredictor")
+        ens_counts, ens_lat = ensemble_full_width(
+            dev, roots["ensemble"], videos, (flow_level, component_extents),
+            (nms, *per_op), synth_counts)
+        log("[22] small ensemble: card vs cpu")
+        ensemble_small_against_cpu(dev, roots["small"])
+        log("[23] SparseTrainer at full size (35,878 x 5 x 249)")
+        sparse_epoch_ms, sparse_test_ms, sparse_projected = sparse_full_size(dev, roots["sparse"])
+        res = {}
+        for name in ("res3d", "res2d"):
+            log(f"[24] {name} trained at full width on synthetic clips, then served")
+            res[name] = train_res_full_width(dev, roots[name], name, videos,
+                                             (flow_level, component_extents), (nms, *per_op))
+        for name in ("res3d", "res2d"):
+            log(f"[25] small {name} train step: card vs cpu")
+            train_small_against_cpu(dev, roots[f"small_{name}"], name, card_spread=True)
+        log("[26] the CLI on the card: sparse-train on [21]'s materials, tools how-many-classes")
+        cli_on_card(roots["ensemble"], [i % 249 + 1 for i in range(8)])
+    finally:
+        shutil.rmtree(ens_root, ignore_errors=True)
+
     def entry(name, source, replaces, launches, k, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"video_classification_tpu_torch/csrc/{source}",
                 "replaces": f"video_classification_tpu/{replaces}",
                 "launches": launches,
                 "launches_per_online_train_step": train_counts[name],
+                "launches_per_ensemble_request": ens_counts[name] / len(ens_lat),
                 "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": library_ms}
@@ -1649,7 +2013,12 @@ def main() -> int:
         f"per-op launches {json.dumps(op_counts)}, request seconds "
         f"{[round(x, 3) for x in op_lat]}; goldens {json.dumps(goldens)}; full-width "
         f"train step {step_s * 1e3:.3f} ms at batch {step_batch} "
-        f"({step_batch / step_s:.3f} clips/s)")
+        f"({step_batch / step_s:.3f} clips/s); ensemble request seconds "
+        f"{[round(x, 3) for x in ens_lat]}; sparse fusion {sparse_epoch_ms:.3f} ms per "
+        f"epoch, test {sparse_test_ms:.3f} ms, 2000 epochs {sparse_projected:.2f} s; "
+        + "; ".join(f"{n} train step {r[0] * 1e3:.3f} ms at batch {r[1]} "
+                    f"({r[1] / r[0]:.3f} clips/s, {r[2] / 2**30:.3f} GiB), request seconds "
+                    f"{[round(x, 3) for x in r[4]]}" for n, r in res.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 Run in subprocesses, because tests/conftest.py imports jax:
 importing every module of ``video_classification_tpu_torch`` (the train
-slice's among them) pulls in neither jax, flax, optax nor the JAX package;
-``chip_smoke.py`` refuses to run without CUDA, and outside a checkout.
+slice's and the ensemble slice's among them) pulls in neither jax, flax,
+optax nor the JAX package; ``python -m video_classification_tpu_torch
+--help`` lists the JAX CLI's subcommands; ``chip_smoke.py`` refuses to run
+without CUDA, and outside a checkout.
 In-process: entry points default to CUDA and raise when there is none; the
 kernel build keeps a C++ compiler only if it links the shared libstdc++.
 """
@@ -24,6 +26,8 @@ PORT = ROOT / "video_classification_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "video_classification_tpu")
 TRAIN_SLICE = ("data.dataset", "data.pipeline", "engine.trainer", "ops.segment",
                "profile_train", "utils.labels", "utils.logging")
+ENSEMBLE_SLICE = ("__main__", "engine.sparse", "models.res3d", "models.resnet2d",
+                  "models.sparse_fusion", "tools")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -41,12 +45,24 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {TRAIN_SLICE!r} if p.__name__ + '.' + m not in sys.modules]\n"
+        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE!r}\n"
+        "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_cli_help_lists_the_jax_subcommands():
+    out = _run(["-m", "video_classification_tpu_torch", "--help"])
+    assert out.returncode == 0, out.stderr
+    for cmd in ("train", "train-parts", "train-parallel", "eval", "preprocess",
+                "sparse-dump", "sparse-train", "v2-convert", "v2-train", "infer", "bench",
+                "tools"):
+        assert cmd in out.stdout, cmd
+    out = _run(["-m", "video_classification_tpu_torch", "tools", "--help"])
+    assert out.returncode == 0 and "how-many-classes" in out.stdout
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -65,15 +81,17 @@ def test_no_jax_imports_in_source(path):
 
 def test_entry_points_raise_without_cuda():
     from video_classification_tpu_torch.config import get_cfg
-    from video_classification_tpu_torch.engine import Predictor, Trainer
+    from video_classification_tpu_torch.engine import (EnsemblePredictor, Predictor,
+                                                       SparseTrainer, Trainer)
     from video_classification_tpu_torch.utils.cuda import resolve_device
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    for entry in (Predictor, Trainer, SparseTrainer):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(get_cfg())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Predictor(get_cfg())
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Trainer(get_cfg())
+        EnsemblePredictor()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -279,12 +279,12 @@ def init_my_slowfast(cfg, input_channels=(5, 15), stem_dim_outs=(64, 8)) -> Slow
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights: convs and linears N(0, 1/fan_in), biases 0, BN
+    """Seeded random weights: convs (2D, 3D) and linears N(0, 1/fan_in), biases 0, BN
     identity (weight 1, bias 0, mean 0, var 1). Draws from ``generator`` in
     module order, on the CPU, so a seed gives the same weights everywhere."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv3d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / fan_in ** 0.5
                 m.weight.copy_(w)

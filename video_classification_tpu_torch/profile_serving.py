@@ -1,10 +1,13 @@
 """Where a serving request's device time goes, on one NVIDIA GPU.
 
     python3 -m video_classification_tpu_torch.profile_serving [--requests 3]
-        [--detector {synthetic,densepose}] [--flow {fused,per-op}]
+        [--detector {synthetic,densepose}] [--flow {fused,per-op}] [--ensemble]
 
 Serves 130-frame 240x320 synthetic videos (two clip windows each) through
-the slowfast-HTAH Predictor at full width with seeded random weights, with
+the slowfast-HTAH Predictor at full width with seeded random weights, or
+with ``--ensemble`` through the EnsemblePredictor of the five part streams
+(engine/sparse.PART_YAMLS, each at its published crop; no fusion checkpoint,
+so uniform mixing), with
 the synthetic detector or the DensePose detector (depth 101, the online
 budget, bfloat16, seeded random weights), and the fused flow level (K1) or
 the per-op one (``FlowParams(fuse_level="off")``: K5 warp and K4 solve per
@@ -12,7 +15,8 @@ outer): one warm-up request, then
 ``--requests`` timed ones (host clock, synchronised), then one request under
 ``torch.profiler``. Prints the mean stage seconds of the timed requests
 (detect, flow, crops, network: synchronised at each stage's ends, in
-requests of their own), the kernel time summed by
+requests of their own; per stream with ``--ensemble``), the kernel time
+summed by
 group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
 warp_bilinear, K6 label_components, convolutions and matrix products, the
 rest), the launch counts, the top kernels, the kernel names in
@@ -33,7 +37,7 @@ import torch
 from torch.autograd import DeviceType
 
 from .config import load_model_cfg
-from .engine import Predictor
+from .engine import EnsemblePredictor, Predictor
 from .pipeline.online import DensePoseOnlineDetector, flow_params_from_cfg
 from .utils.cuda import resolve_device
 from .utils.profiling import StageTimer
@@ -91,6 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--detector", choices=("synthetic", "densepose"),
                     default="synthetic")
     ap.add_argument("--flow", choices=tuple(FLOW_GROUPS), default="fused")
+    ap.add_argument("--ensemble", action="store_true",
+                    help="the five part streams fused (EnsemblePredictor)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     # A root without checkpoints: the model keeps its seeded random weights.
@@ -104,7 +110,13 @@ def main(argv=None) -> int:
     flow_params = None
     if args.flow == "per-op":
         flow_params = flow_params_from_cfg(cfg)._replace(fuse_level="off")
-    pred = Predictor(cfg, device=dev, detector=detector, flow_params=flow_params)
+    if args.ensemble:
+        pred = EnsemblePredictor(cfg_overrides=["CHALEARN.ROOT", root], detector=detector,
+                                 flow_params=flow_params, device=dev)
+        streams = dict(zip(pred.part_yamls, pred.predictors))
+    else:
+        pred = Predictor(cfg, device=dev, detector=detector, flow_params=flow_params)
+        streams = {cfg.MODEL.NAME: pred}
     rgb = coherent_motion_frames(130, 240, 320, torch.Generator().manual_seed(10))
     depth = rgb.float().mean(-1, keepdim=True).to(torch.uint8)
     rgb, depth = rgb.numpy(), depth.numpy()
@@ -120,11 +132,14 @@ def main(argv=None) -> int:
     wall = sum(walls) / len(walls)
     # Stage times from as many further requests, timed separately: the
     # timer's syncs would lengthen the requests timed above.
-    pred.timer = StageTimer(dev)
+    for p in streams.values():
+        p.timer = StageTimer(dev)
     for _ in range(args.requests):
         pred.predict_frames(rgb, depth)
-    stages = {k: v / args.requests for k, v in pred.timer.seconds.items()}
-    pred.timer = None
+    stages = {name: {k: round(v / args.requests, 4) for k, v in p.timer.seconds.items()}
+              for name, p in streams.items()}
+    for p in streams.values():
+        p.timer = None
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -155,7 +170,8 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "detector": args.detector,
         "flow": args.flow,
-        "stage_mean_s": {k: round(v, 4) for k, v in stages.items()},
+        "streams": list(streams),
+        "stage_mean_s": stages if args.ensemble else next(iter(stages.values())),
         "request_s": [round(w, 4) for w in walls],
         "request_mean_s": round(wall, 4),
         "device_kernel_ms": round(device_ms, 3),
