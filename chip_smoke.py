@@ -129,10 +129,44 @@ Then the ensemble slice:
  26. ``python -m video_classification_tpu_torch`` in a subprocess on the
      card: sparse-train on 21's materials and tools how-many-classes, both
      exit 0.
+Then the offline chain (pipeline/stages, detect/provider, pipeline/frame_io):
+ 27. the DensePose provider's three resizes (ops/image: OpenCV's
+     INTER_LINEAR on uint8 frames and float32 U/V, INTER_NEAREST on
+     charts) on the card against the CPU, exactly, at 8 x 480x640 ->
+     800x1067 and at box sizes from 1x1 to 480x640; an ArrayFrameIO round
+     trip; Cv2FrameIO() raising an ImportError that names ArrayFrameIO where
+     cv2 is absent (skipped, and logged, where it is present);
+ 28. the whole chain at full width through ArrayFrameIO (lossless .npy
+     payloads: no JPEG or AVI coding) with the synthetic provider: one
+     130-frame 240x320 M_/K_ pair in train and one in test, every stage
+     (sample, images, flow, energy, pad, IUV, CSE, crops), seconds per
+     stage and files per stage folder, all six crop streams written; the
+     launch counts zeroed just before and read just after: K1 (27 calls a
+     video) and K2 launch, K3-K6 do not;
+ 29. padded_to_iuv, then iuv_to_crop, with DensePoseIUVProvider at full
+     width (depth 101, ResizeShortestEdge 800/1333, 1000 per level, 1000,
+     100 detections, pooler 28, chart_topk 1, batch 8, bfloat16; seeded
+     random weights with the stem and box-delta layers scaled,
+     profile_preprocess.random_provider) on [28]'s 52 padded frames:
+     seconds per frame, K2 and K3 launch, K1 and K4-K6 do not; boxes inside
+     the padded frame, labels 0..24 at the best box's size, U and V in
+     [0, 1];
+ 30. the kernels on the calls captured from [28] and [29]: K1 bit-equal on
+     one video's 27 calls (its 65-pair 240x320 call timed), K3 exact on
+     every call ((8, ~4663) into 1000 slots at 0.7 and (8, 1000) into 100
+     at 0.5, both timed), K2 exact on every frame's six box-sized part
+     masks (the largest batch timed, with its route and iterations), each
+     with its bound;
+ 31. a 10-frame 64x96 chain (synthetic provider, 2 outers and 4 sweeps) on
+     the card and on the CPU: the same files everywhere, everything equal
+     but the flow images and flow crops, those within +-1 on >= 99.9 %;
+     DensePoseIUVProvider at depth 50, float32, small budgets, card against
+     CPU at the detector bars of 9.
 Then one JSON line describing each kernel (with its launches per online
-train step, from 18, and per ensemble request, from 21), the nvidia-smi
-line, and last {"ok": true, "device": {...}}. Exits non-zero without a
-result when CUDA is unavailable.
+train step, from 18, per ensemble request, from 21, and per offline video,
+from 28 and 29; K1, K2 and K3 with their offline rows from 30), the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero
+without a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -705,27 +739,41 @@ def check_nms(dev, serving_calls):
     boxes, scores = nms_boxes(8192, 6, 1600.0)
     err = max(err, case("N 8192 max_out 300 (the most one block holds)", boxes, scores, 300, 0.7))
 
-    rows = []
-    for boxes, scores, max_out, thr in serving_calls:
-        bsz, n = scores.shape
-        what = f"serving {bsz}x{n} thr {thr} max_out {max_out}"
-        err = max(err, exact(what, boxes, scores, max_out, thr)[0])
-        ms = cuda_ms(lambda: nms(boxes, scores, max_out, thr), reps=20)
-        (_, mask), plain = cuda_call_ms(lambda: nms_reference(boxes, scores, max_out, thr))
-        # The work this data needs: the sort and the chunks the scan reached.
-        # The real limit is latency (the sort's and the chunks' barriers);
-        # the bound counts only operations and bytes.
-        ops = nms_scan_ops(scores, *nms(boxes, scores, max_out, thr))
-        bound_ms, bound_by = bound(ops, bsz * n * 20 + bsz * max_out * 5)
-        row = {"batch": f"{bsz}x{n}", "thr": thr, "max_out": max_out,
-               "kept": int(mask.sum()), "ops": ops, "ms": round(ms, 4),
-               "plain_ms": round(plain, 4), "bound_ms": bound_ms,
-               "bound_by": bound_by}
-        log(f"  K3 {what}: exact; time {json.dumps(row)}")
-        rows.append(row)
+    rows = [nms_row("serving", *call) for call in serving_calls]
     if {r["batch"] for r in rows} != {"20x1264", "20x64"}:
         raise AssertionError(f"K3: serving batches {[r['batch'] for r in rows]}")
     return {**rows[0], "rows": rows, "max_abs_err": err}
+
+
+def nms_row(what, boxes, scores, max_out, thr, timed: bool = True):
+    """K3 on one captured call: exact against its plain version (indices
+    and mask), then (if ``timed``) timed beside it, with the bound of the
+    work this data needs."""
+    import torch
+
+    from video_classification_tpu_torch.detect.nms import nms, nms_reference
+
+    bsz, n = scores.shape
+    what = f"{what} {bsz}x{n} thr {thr} max_out {max_out}"
+    (ki, km), (ri, rm) = nms(boxes, scores, max_out, thr), nms_reference(
+        boxes, scores, max_out, thr)
+    if not (torch.equal(ki, ri) and torch.equal(km, rm) and ki.dtype == torch.int32):
+        raise AssertionError(f"K3 {what}: kernel and plain differ")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: nms(boxes, scores, max_out, thr), reps=20)
+    (_, mask), plain = cuda_call_ms(lambda: nms_reference(boxes, scores, max_out, thr))
+    # The work this data needs: the sort and the chunks the scan reached.
+    # The real limit is latency (the sort's and the chunks' barriers); the
+    # bound counts only operations and bytes.
+    ops = nms_scan_ops(scores, ki, km)
+    bound_ms, bound_by = bound(ops, bsz * n * 20 + bsz * max_out * 5)
+    row = {"batch": f"{bsz}x{n}", "thr": thr, "max_out": max_out,
+           "kept": int(mask.sum()), "ops": ops, "ms": round(ms, 4),
+           "plain_ms": round(plain, 4), "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"  K3 {what}: exact; time {json.dumps(row)}")
+    return row
+
 
 
 def sor_ops_per_pixel(n_sor: int) -> int:
@@ -1845,6 +1893,404 @@ def cli_on_card(ensemble_root: str, labels):
         raise AssertionError(f"how-many-classes printed {out.stdout!r}, expected {want!r}")
 
 
+# -- the offline chain: frame I/O, the stages, the IUV provider -------------------
+
+OFFLINE_SETS = ("train", "test")
+CROP_STREAMS = ("CropHTAH", "CropLHand", "CropRHand", "CropLHandArm", "CropRHandArm",
+                "CropTorso")
+
+
+def port_kernels():
+    """The six kernel wrappers, K1-K6."""
+    from video_classification_tpu_torch.detect.nms import nms
+    from video_classification_tpu_torch.ops.component_extents import component_extents
+    from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.label_components import label_components
+    from video_classification_tpu_torch.ops.sor_solve import sor_solve
+    from video_classification_tpu_torch.ops.warp import warp_bilinear
+
+    return (flow_level, component_extents, nms, sor_solve, warp_bilinear, label_components)
+
+
+class Recorder:
+    """Replaces ``module.name`` (a kernel wrapper as its callers see it) by
+    a wrapper that keeps clones of the arguments of up to ``keep`` calls,
+    until the ``with`` block ends."""
+
+    def __init__(self, module, name: str, keep: int = 10 ** 9):
+        self.module, self.name, self.keep, self.calls = module, name, keep, []
+
+    def __enter__(self):
+        import torch
+
+        real = self.real = getattr(self.module, self.name)
+
+        def record(*args, **kwargs):
+            if len(self.calls) < self.keep:
+                self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                        for a in args))
+            return real(*args, **kwargs)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def chain_counts(what, run, must, absent):
+    """Zero every kernel's launch count just before ``run()``, read them
+    just after; each of ``must`` launched, none of ``absent``."""
+    kernels = port_kernels()
+    for k in kernels:
+        k.launches = 0
+    run()
+    counts = {k.__name__: k.launches for k in kernels}
+    log(f"  {what} launches: {json.dumps(counts)}")
+    for name in must:
+        if counts[name] == 0:
+            raise AssertionError(f"{what} never launched {name}")
+    for name in absent:
+        if counts[name] != 0:
+            raise AssertionError(f"{what} launched {name}")
+    return counts
+
+
+def check_resizes_and_io(dev, work):
+    """[27] The provider's three resizes on the card against the CPU,
+    exactly (480x640 -> 800x1067 in uint8, and box sizes 1x1 to 480x640
+    from 112x112 charts, fields and frames), an ArrayFrameIO round trip, and
+    Cv2FrameIO refusing where cv2 is absent."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.ops.image import (resize_linear_f32,
+                                                          resize_linear_u8, resize_nearest)
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO, Cv2FrameIO
+
+    g = torch.Generator().manual_seed(27)
+    frames = torch.randint(0, 256, (8, 480, 640, 3), generator=g, dtype=torch.uint8)
+    charts = torch.randint(0, 25, (2, 112, 112), generator=g, dtype=torch.int32)
+    fields = torch.rand((2, 112, 112), generator=g)
+    small = torch.randint(0, 256, (2, 112, 112, 3), generator=g, dtype=torch.uint8)
+    cases = [("uint8 linear", resize_linear_u8, frames, (800, 1067))]
+    for hw in ((1, 1), (1, 37), (53, 1), (17, 29), (113, 175), (240, 320), (307, 211),
+               (480, 640)):
+        cases += [("nearest", resize_nearest, charts, hw),
+                  ("float32 linear", resize_linear_f32, fields, hw),
+                  ("uint8 linear", resize_linear_u8, small, hw)]
+    for what, fn, x, hw in cases:
+        card, cpu = fn(x.to(dev), hw).cpu(), fn(x, hw)
+        if card.dtype != cpu.dtype or not torch.equal(card, cpu):
+            raise AssertionError(f"{what} {tuple(x.shape)} -> {hw}: card and cpu differ")
+    ms = cuda_ms(lambda: resize_linear_u8(frames.to(dev), (800, 1067)), reps=10)
+    log(f"  resizes: {len(cases)} cases equal on the card and the CPU; the provider's "
+        f"uint8 resize of 8 x 480x640 -> 800x1067 (with the upload) {ms:.4f} ms")
+
+    io, folder = ArrayFrameIO(), Path(work)
+    img = np.random.RandomState(0).randint(0, 256, (240, 320, 3)).astype(np.uint8)
+    io.imwrite(folder / "00005.jpg", img)
+    io.imwrite(folder / "U_00005.jpg", img[..., 0])
+    io.write_video(folder / "M_00001.avi", [img, img[::-1]])
+    back = io.read_video(folder / "M_00001.avi")
+    if not (np.array_equal(io.imread(folder / "00005.jpg"), img)
+            and np.array_equal(io.imread(folder / "U_00005.jpg", gray=True), img[..., 0])
+            and len(back) == 2 and np.array_equal(back[1], img[::-1])):
+        raise AssertionError("ArrayFrameIO round trip")
+    log("  ArrayFrameIO: image, gray image and video round trip exact")
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        try:
+            Cv2FrameIO()
+        except ImportError as e:
+            if "ArrayFrameIO" not in str(e):
+                raise AssertionError(f"Cv2FrameIO's error does not name ArrayFrameIO: {e}")
+            log("  Cv2FrameIO() without cv2: ImportError naming ArrayFrameIO")
+        else:
+            raise AssertionError("Cv2FrameIO() did not raise without cv2")
+    else:
+        log("  Cv2FrameIO() check skipped: this machine has cv2")
+
+
+def offline_chain_full_width(dev, work):
+    """[28] The whole chain at full width with the synthetic provider: a
+    raw fixture through ArrayFrameIO (one 130-frame 240x320 M_/K_ pair in
+    train and one in test), every stage (energy and CSE too), seconds per
+    stage, files per stage folder, every crop stream written; K1 and K2
+    launch, K3-K6 do not. Returns (root, counts, stage seconds, the K1 calls
+    of the first video)."""
+    from pathlib import Path
+
+    import video_classification_tpu_torch.ops.flow as flow_mod
+    from video_classification_tpu_torch.pipeline import stages
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.pipeline.iuv_contract import SyntheticIUVProvider
+    from video_classification_tpu_torch.profile_preprocess import (FRAMES, chain_cfg,
+                                                                   stage_files, write_fixture)
+    from video_classification_tpu_torch.utils.profiling import StageTimer
+
+    root, io = Path(work) / "chain", ArrayFrameIO()
+    t0 = time.perf_counter()
+    write_fixture(root, io)
+    log(f"  fixture: 2 M_/K_ pairs of {FRAMES} 240x320 frames in "
+        f"{time.perf_counter() - t0:.2f} s")
+    timer = StageTimer(dev)
+    # Chunks of 64 pairs (130 frames: 64, 65 and 1) x nine pyramid levels.
+    k1_per_video = len(range(0, FRAMES, 64)) * 9
+    with Recorder(flow_mod, "flow_level", keep=k1_per_video) as k1:
+        counts = chain_counts("[28] chain", lambda: stages.run_stages(
+            chain_cfg(root), stages.STAGES, SyntheticIUVProvider(), OFFLINE_SETS, io=io,
+            device=dev, timer=timer), ("flow_level", "component_extents"),
+            ("nms", "sor_solve", "warp_bilinear", "label_components"))
+    seconds = {k: round(v, 4) for k, v in timer.seconds.items()}
+    files = stage_files(root)
+    log(f"  stage seconds {json.dumps(seconds)}")
+    log(f"  files per stage folder {json.dumps(files)}")
+    missing = [c for c in CROP_STREAMS if not files.get(c)]
+    if missing or not files.get("CropBody"):
+        raise AssertionError(f"crop streams not written: {missing}")
+    if counts["flow_level"] != 2 * k1_per_video:
+        raise AssertionError(f"K1 launched {counts['flow_level']} times for 2 videos")
+    return root, counts, seconds, k1.calls
+
+
+def check_offline_detections(root):
+    """The IUV pickles' sanity: boxes finite and inside the padded frame
+    (up to the resize's rounding), labels 0..24 of the best box's integer
+    size, U and V in [0, 1]. Returns (frames, frames with a detection)."""
+    import pickle
+
+    import numpy as np
+
+    from video_classification_tpu_torch.detect.provider import resized_shape
+
+    scale, (nh, nw) = resized_shape(480, 640, 800, 1333)
+    frames = found = 0
+    for pkl in sorted((root / "4_IUV").rglob("*.pkl")):
+        with pkl.open("rb") as f:
+            items = pickle.load(f)
+        for item in items:
+            frames += 1
+            boxes = item["pred_boxes_XYXY"]
+            if boxes.shape[0] == 0:
+                continue
+            found += 1
+            labels = item["pred_densepose"][0]["labels"]
+            uv = item["pred_densepose"][0]["uv"]
+            x1, y1, x2, y2 = boxes[int(np.argmax(item["scores"]))].astype(int)
+            ok = (np.isfinite(boxes).all() and boxes[:, :2].min() >= 0
+                  and boxes[:, 2].max() <= nw / scale and boxes[:, 3].max() <= nh / scale
+                  and (boxes[:, 2:] >= boxes[:, :2]).all()
+                  and labels.shape == (max(y2 - y1, 1), max(x2 - x1, 1))
+                  and labels.dtype == np.uint8 and int(labels.max()) <= 24
+                  and uv.shape == (2,) + labels.shape
+                  and float(uv.min()) >= 0.0 and float(uv.max()) <= 1.0)
+            if not ok:
+                raise AssertionError(f"{item['file_name']}: detection out of range")
+    return frames, found
+
+
+def offline_densepose_full_width(dev, root):
+    """[29] padded_to_iuv, then iuv_to_crop, with DensePoseIUVProvider at
+    full width (depth 101, 800/1333, 1000 per level, 1000, 100, pooler 28,
+    chart_topk 1, batch 8, bfloat16; seeded random weights,
+    profile_preprocess.random_provider) on [28]'s 52 padded frames: seconds
+    per frame, K2 and K3 launch, K1 and K4-K6 do not, the detections'
+    sanity. Returns (counts, seconds, K3 calls, K2 calls)."""
+    import shutil
+
+    import video_classification_tpu_torch.detect.densepose as dp
+    import video_classification_tpu_torch.ops.components as components
+    from video_classification_tpu_torch.pipeline import stages
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.profile_preprocess import chain_cfg, random_provider
+    from video_classification_tpu_torch.utils.profiling import StageTimer
+
+    for d in [root / "4_IUV", *root.glob("Crop*")]:
+        shutil.rmtree(d)
+    t0 = time.perf_counter()
+    provider = random_provider(dev)
+    log(f"  provider: depth 101, {provider.model.compute_dtype}, budget "
+        f"{provider.model.pre_nms_topk} / {provider.model.post_nms_topk} / "
+        f"{provider.model.max_detections}; built in {time.perf_counter() - t0:.2f} s")
+    timer = StageTimer(dev)
+    with Recorder(dp, "nms") as k3, Recorder(components, "component_extents") as k2:
+        counts = chain_counts("[29] IUV and crops", lambda: stages.run_stages(
+            chain_cfg(root), ("iuv", "crop"), provider, OFFLINE_SETS, io=ArrayFrameIO(),
+            device=dev, timer=timer), ("component_extents", "nms"),
+            ("flow_level", "sor_solve", "warp_bilinear", "label_components"))
+    seen, found = check_offline_detections(root)
+    seconds = {k: round(v, 4) for k, v in timer.seconds.items()}
+    log(f"  {seen} frames, {found} with a detection; seconds {json.dumps(seconds)}, per "
+        f"frame {json.dumps({k: round(v / seen, 4) for k, v in seconds.items()})}")
+    if seen != 52 or found == 0:
+        raise AssertionError(f"[29]: {seen} frames, {found} detected")
+    del provider
+    return counts, seconds, k3.calls, k2.calls
+
+
+def check_offline_kernels(dev, k1_calls, k3_calls, k2_calls):
+    """[30] The kernels on the calls the offline chain made: K1 bit-equal
+    on each of one video's 27 calls, its 65-pair 240x320 call timed; K3
+    exact on every captured call, the RPN's (8, ~4663) into 1000 slots at
+    0.7 and the box head's (8, 1000) into 100 at 0.5 timed; K2 exact on
+    every frame's six box-sized part masks, the largest batch timed with its
+    route and iterations. Each with its bound."""
+    from video_classification_tpu_torch.ops.component_extents import (
+        component_extents, component_extents_reference)
+    from video_classification_tpu_torch.ops.flow import DEFAULT_PARAMS as p
+    from video_classification_tpu_torch.ops.flow_level import (flow_level,
+                                                               flow_level_reference)
+    from video_classification_tpu_torch.utils.cuda import build
+
+    err1 = 0.0
+    for call in k1_calls:
+        err1 = max(err1, require_equal("K1 offline", flow_level(*call),
+                                       flow_level_reference(*call)))
+    shapes = sorted({(c[0].shape[0],) + tuple(c[0].shape[1:3]) for c in k1_calls})
+    log(f"  K1: {len(k1_calls)} calls of one video bit-equal (u, v, mx); shapes {shapes}")
+    call = max(k1_calls, key=lambda c: c[0].numel())
+    a1, a2, u, v = call[:4]
+    rest = call[4:]
+    b, h, w = u.shape
+    ms = cuda_ms(lambda: flow_level(*call))
+    _, plain = cuda_call_ms(lambda: flow_level_reference(*call))
+    outers = int(executed_outers(lambda k: flow_level(a1, a2, u, v, k, *rest[1:]),
+                                 p.n_outer).sum())
+    bound_ms, bound_by = bound(outers * h * w * flow_ops_per_pixel_outer(3, p.n_sor),
+                               (2 * a1.numel() + 4 * u.numel() + b) * 4)
+    k1 = {"call": f"{b}x{h}x{w}", "ms": round(ms, 4), "plain_ms": round(plain, 4),
+          "outers": outers, "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+          "max_abs_err": err1}
+    log(f"  K1 offline time {json.dumps(k1)}")
+
+    # Every call exact; per slot count the first call of the largest batch timed.
+    first = {}
+    for i, (_, scores, max_out, _) in enumerate(k3_calls):
+        if max_out not in first or scores.shape[0] > k3_calls[first[max_out]][1].shape[0]:
+            first[max_out] = i
+    k3 = {}
+    for i, call in enumerate(k3_calls):
+        row = nms_row("offline", *call, timed=i in first.values())
+        if row is not None:
+            k3[call[2]] = row
+    if sorted(k3) != [100, 1000] or {k3[1000]["thr"], k3[100]["thr"]} != {0.7, 0.5}:
+        raise AssertionError(f"K3 offline calls {sorted(k3)}")
+    k3 = [k3[1000], k3[100]]
+    log(f"  K3: {len(k3_calls)} offline calls exact")
+
+    route = build().component_extents_route
+    for (masks,) in k2_calls:
+        err = max(int((a.long() - c.long()).abs().max()) for a, c in
+                  zip(component_extents(masks), component_extents_reference(masks)))
+        if err:
+            raise AssertionError(f"K2 offline {tuple(masks.shape)}: max |kernel - plain| {err}")
+    sizes = sorted({tuple(m.shape[1:]) for (m,) in k2_calls}, key=lambda s: s[0] * s[1])
+    log(f"  K2: {len(k2_calls)} frames' part masks exact; box sizes {sizes[0]} to "
+        f"{sizes[-1]} ({len(sizes)} sizes)")
+    largest = max((m for (m,) in k2_calls), key=lambda m: m.numel())
+    h, w = largest.shape[1:]
+    words = route(h, w)
+    k2 = time_extents(f"offline {'x'.join(map(str, largest.shape))} part masks", largest,
+                      4 if words == "narrow" else 2, words)
+    return {"flow_level": k1, "nms": k3, "component_extents": k2}
+
+
+def offline_small_against_cpu(dev, work):
+    """[31] The chain small (a 10-frame 64x96 fixture through ArrayFrameIO,
+    the synthetic provider, flow of 2 outers and 4 sweeps) on the card and
+    on the CPU: the same files in every folder, images, pads, IUV pickles
+    and the RGB, U, V and D crops equal, flow images and flow crops within
+    +-1 on >= 99.9 %; then DensePoseIUVProvider at depth 50, float32, small
+    budgets, card against CPU at the detector bars."""
+    import pickle
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.data.fixture import generate_raw_fixture
+    from video_classification_tpu_torch.detect.provider import DensePoseIUVProvider
+    from video_classification_tpu_torch.ops.flow import FlowParams
+    from video_classification_tpu_torch.pipeline import stages
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.pipeline.iuv_contract import SyntheticIUVProvider
+    from video_classification_tpu_torch.profile_preprocess import chain_cfg, random_provider
+
+    io = ArrayFrameIO()
+    roots = {k: Path(work) / f"small_{k}" for k in ("card", "cpu")}
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = str(roots["card"])
+    generate_raw_fixture(cfg, num_videos_per_set=1, num_classes=1, num_frames=10,
+                         hw=(64, 96), sets=OFFLINE_SETS, io=io)
+    shutil.copytree(roots["card"], roots["cpu"])
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        stages.run_stages(chain_cfg(roots[name]), stages.STAGES, SyntheticIUVProvider(),
+                          OFFLINE_SETS, FlowParams(n_outer=2, n_sor=4, min_width=16), io=io,
+                          device=device)
+    files = {k: sorted(p.relative_to(r).as_posix() for p in r.rglob("*") if p.is_file())
+             for k, r in roots.items()}
+    if files["card"] != files["cpu"]:
+        raise AssertionError("[31]: the card and the CPU wrote different files")
+    flow_files, worst = 0, 1.0
+    for f in files["card"]:
+        a, b = (roots[k] / f for k in ("card", "cpu"))
+        if f.endswith(".pkl"):
+            with a.open("rb") as fa, b.open("rb") as fb:
+                pa, pb = pickle.load(fa), pickle.load(fb)
+            same = len(pa) == len(pb) and all(
+                np.array_equal(x[k], y[k]) for x, y in zip(pa, pb)
+                for k in ("pred_boxes_XYXY", "scores")) and all(
+                np.array_equal(x["pred_densepose"][0][k], y["pred_densepose"][0][k])
+                for x, y in zip(pa, pb) for k in ("labels", "uv"))
+        elif f.startswith("2_Flow/") or Path(f).name.startswith("F"):
+            flow_files += 1
+            worst = min(worst, within(torch.from_numpy(np.load(a)),
+                                      torch.from_numpy(np.load(b)), 1))
+            same = True
+        else:
+            same = a.read_bytes() == b.read_bytes()
+        if not same:
+            raise AssertionError(f"[31]: {f} differs between the card and the CPU")
+    log(f"  small chain: {len(files['card'])} files, equal on the card and the CPU except "
+        f"{flow_files} flow images and crops, worst within +-1 {worst:.6f}")
+    if worst < FLOW_FRAC:
+        raise AssertionError(f"[31]: flow within +-1 on {worst}")
+
+    budget = dict(depth=50, pre_nms_topk=64, post_nms_topk=16, max_detections=4,
+                  chart_pooler_size=14, min_size=160, max_size=400, batch_size=2,
+                  compute_dtype="float32")
+    card = random_provider(dev, **budget)
+    cpu = DensePoseIUVProvider(
+        state_dict={k: v.cpu() for k, v in card.model.state_dict().items()},
+        device="cpu", **budget)
+    pads = sorted((roots["cpu"] / "3_Pad").rglob("M_*/*.jpg"))
+    frames = np.stack([io.imread(p) for p in pads])
+    got, want = card.detect(frames, []), cpu.detect(frames, [])
+    worst = {"box": 0.0, "score": 0.0, "chart": 1.0, "uv": 0.0, "compared": 0}
+    for g, c in zip(got, want):
+        if g.boxes_xyxy.shape != c.boxes_xyxy.shape:
+            raise AssertionError(f"[31] detector: {g.boxes_xyxy.shape} vs {c.boxes_xyxy.shape}")
+        if not c.boxes_xyxy.shape[0]:
+            continue
+        worst["box"] = max(worst["box"], float(np.abs(g.boxes_xyxy - c.boxes_xyxy).max()))
+        worst["score"] = max(worst["score"], float(np.abs(g.scores - c.scores).max()))
+        if np.array_equal(g.best_box(), c.best_box()):
+            same = g.labels == c.labels
+            worst["compared"] += 1
+            worst["chart"] = min(worst["chart"], float(same.mean()))
+            worst["uv"] = max(worst["uv"], float(np.abs(g.uv - c.uv)[:, same].max()))
+    log(f"  small provider card vs cpu: {len(frames)} frames, {json.dumps(worst)}")
+    if (worst["box"] > 1e-3 or worst["score"] > 1e-4 or worst["chart"] < 0.999
+            or worst["uv"] > 1e-3 or worst["compared"] == 0):
+        raise AssertionError(f"[31] detector: card and cpu disagree: {worst}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1982,16 +2428,40 @@ def main() -> int:
     finally:
         shutil.rmtree(ens_root, ignore_errors=True)
 
+    offline_root = tempfile.mkdtemp(prefix="offline_", dir=Path(root).parent)
+    try:
+        log("[27] the provider's resizes on the card vs the cpu; frame I/O")
+        check_resizes_and_io(dev, offline_root)
+        log("[28] the offline chain at full width (ArrayFrameIO, synthetic provider)")
+        chain_root, chain_counts28, chain_s, k1_calls = offline_chain_full_width(
+            dev, offline_root)
+        log("[29] IUV and crops at full width with DensePoseIUVProvider")
+        iuv_counts, iuv_s, k3_calls, k2_calls = offline_densepose_full_width(dev, chain_root)
+        log("[30] K1, K3 and K2 on the offline chain's calls")
+        offline = check_offline_kernels(dev, k1_calls, k3_calls, k2_calls)
+        del k1_calls, k3_calls, k2_calls
+        torch.cuda.empty_cache()
+        log("[31] the small chain and provider: card vs cpu")
+        offline_small_against_cpu(dev, offline_root)
+    finally:
+        shutil.rmtree(offline_root, ignore_errors=True)
+    offline_videos = len(OFFLINE_SETS)
+
     def entry(name, source, replaces, launches, k, library_ms=None):
-        return {"name": name, "route": "cuda",
-                "source": f"video_classification_tpu_torch/csrc/{source}",
-                "replaces": f"video_classification_tpu/{replaces}",
-                "launches": launches,
-                "launches_per_online_train_step": train_counts[name],
-                "launches_per_ensemble_request": ens_counts[name] / len(ens_lat),
-                "max_abs_err": k["max_abs_err"],
-                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": library_ms}
+        row = {"name": name, "route": "cuda",
+               "source": f"video_classification_tpu_torch/csrc/{source}",
+               "replaces": f"video_classification_tpu/{replaces}",
+               "launches": launches,
+               "launches_per_online_train_step": train_counts[name],
+               "launches_per_ensemble_request": ens_counts[name] / len(ens_lat),
+               "launches_per_offline_video":
+                   (chain_counts28[name] + iuv_counts[name]) / offline_videos,
+               "max_abs_err": k["max_abs_err"],
+               "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": library_ms}
+        if name in offline:
+            row["offline"] = offline[name]
+        return row
 
     kernels = [
         entry("flow_level", "flow_level.cu", "ops/pallas_flow.py:320",
@@ -2014,7 +2484,9 @@ def main() -> int:
         f"{[round(x, 3) for x in op_lat]}; goldens {json.dumps(goldens)}; full-width "
         f"train step {step_s * 1e3:.3f} ms at batch {step_batch} "
         f"({step_batch / step_s:.3f} clips/s); ensemble request seconds "
-        f"{[round(x, 3) for x in ens_lat]}; sparse fusion {sparse_epoch_ms:.3f} ms per "
+        f"{[round(x, 3) for x in ens_lat]}; offline chain stage seconds "
+        f"{json.dumps(chain_s)}, DensePose IUV and crops {json.dumps(iuv_s)}; "
+        f"sparse fusion {sparse_epoch_ms:.3f} ms per "
         f"epoch, test {sparse_test_ms:.3f} ms, 2000 epochs {sparse_projected:.2f} s; "
         + "; ".join(f"{n} train step {r[0] * 1e3:.3f} ms at batch {r[1]} "
                     f"({r[1] / r[0]:.3f} clips/s, {r[2] / 2**30:.3f} GiB), request seconds "

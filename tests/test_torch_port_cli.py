@@ -120,7 +120,7 @@ def test_a_command_needs_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("argv", [
-    ["preprocess", "--stages", "sample"], ["train-parallel", "slowfast-HTAH"],
+    ["train-parallel", "slowfast-HTAH"],
     ["v2-convert"], ["v2-train"], ["bench"], ["tools", "render-iuv", "a.pkl", "m.avi", "out"]])
 def test_unported_subcommands_exit_nonzero(argv):
     rc, out, err = _run(argv)

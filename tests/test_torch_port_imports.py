@@ -1,9 +1,9 @@
 """Import hygiene, device policy and build toolchain of the PyTorch port.
 
 Run in subprocesses, because tests/conftest.py imports jax:
-importing every module of ``video_classification_tpu_torch`` (the train
-slice's and the ensemble slice's among them) pulls in neither jax, flax,
-optax nor the JAX package; ``python -m video_classification_tpu_torch
+importing every module of ``video_classification_tpu_torch`` (the train,
+ensemble and offline-chain slices' among them) pulls in neither jax, flax,
+optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
 --help`` lists the JAX CLI's subcommands; ``chip_smoke.py`` refuses to run
 without CUDA, and outside a checkout.
 In-process: entry points default to CUDA and raise when there is none; the
@@ -28,6 +28,9 @@ TRAIN_SLICE = ("data.dataset", "data.pipeline", "engine.trainer", "ops.segment",
                "profile_train", "utils.labels", "utils.logging")
 ENSEMBLE_SLICE = ("__main__", "engine.sparse", "models.res3d", "models.resnet2d",
                   "models.sparse_fusion", "tools")
+OFFLINE_SLICE = ("data.fixture", "detect.provider", "pipeline.frame_io",
+                 "pipeline.iuv_contract", "pipeline.stages", "profile_preprocess",
+                 "utils.chapath", "utils.chunked")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -43,15 +46,15 @@ def test_importing_the_port_loads_no_jax():
         "import video_classification_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE!r}\n"
+        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE!r}\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 38
 
 
 def test_cli_help_lists_the_jax_subcommands():
@@ -95,6 +98,32 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_offline_chain_needs_the_card_unless_asked_for_the_cpu(tmp_path):
+    """The provider and the device stages resolve their device first; a
+    missing cv2 or card never moves them to the CPU or to other I/O."""
+    import numpy as np
+
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.detect.provider import DensePoseIUVProvider
+    from video_classification_tpu_torch.pipeline import stages
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = str(tmp_path)
+    io = ArrayFrameIO()
+    for call in (
+            lambda: DensePoseIUVProvider(depth=50, allow_random_init=True),
+            lambda: stages.video_flow_images(np.zeros((2, 8, 8, 3), np.uint8)),
+            lambda: stages.filter_img_by_flow(cfg, io=io),
+            lambda: stages.iuv_to_crop(cfg, io=io),
+            lambda: stages.run_stages(cfg, ["crop"], io=io)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    stages.iuv_to_crop(cfg, io=io, device="cpu")  # nothing to crop, on the CPU
 
 
 def test_chip_smoke_fails_without_cuda_and_outside_a_checkout(tmp_path):

@@ -6,6 +6,7 @@ this package runs:
     python -m video_classification_tpu_torch train slowfast-Torso [...] [--warmstart F]
     python -m video_classification_tpu_torch train-parts
     python -m video_classification_tpu_torch eval slowfast-HTAH
+    python -m video_classification_tpu_torch preprocess --root /data/ChaLearn [--provider synthetic]
     python -m video_classification_tpu_torch sparse-dump
     python -m video_classification_tpu_torch sparse-train
     python -m video_classification_tpu_torch infer M_00001.avi [--depth K_00001.avi] [--ensemble]
@@ -14,7 +15,9 @@ this package runs:
 ``--opts KEY VALUE ...`` merges dotted config overrides last; ``--root`` is
 CHALEARN.ROOT. Everything runs on the CUDA card and raises without one;
 ``VCT_PLATFORM=cpu`` runs it on the CPU instead (the kernels' plain
-versions), the variable the JAX package's CLI reads. ``preprocess``,
+versions), the variable the JAX package's CLI reads. ``preprocess``
+reads and writes JPEG and AVI files through ``cv2`` (``Cv2FrameIO``), as the
+JAX CLI does; its DensePose provider needs ``--densepose-pkl``.
 ``train-parallel``, ``v2-convert``, ``v2-train``, ``bench`` and ``tools
 render-iuv`` are not ported yet: they exit with status 2, naming the
 ROADMAP item that ports them.
@@ -29,7 +32,6 @@ from pathlib import Path
 
 # Subcommand (or tool) -> the ROADMAP queue-1 item that ports it.
 NOT_PORTED = {
-    "preprocess": "8 (offline chain)",
     "train-parallel": "11 (parallelism)",
     "v2-convert": "10 (v2 slice)",
     "v2-train": "10 (v2 slice)",
@@ -67,6 +69,32 @@ def _device():
     raise SystemExit(f"VCT_PLATFORM={plat!r}: use 'cpu', 'cuda' or leave it unset")
 
 
+def _provider(kind, densepose_pkl, device):
+    if kind == "synthetic":
+        from .pipeline.iuv_contract import SyntheticIUVProvider
+
+        return SyntheticIUVProvider()
+    from .detect.provider import DensePoseIUVProvider
+
+    if densepose_pkl is None:
+        raise SystemExit("preprocess --provider densepose needs --densepose-pkl (a "
+                         "detectron2 model_final_*.pkl): a randomly initialised "
+                         "detector gives meaningless IUV")
+    return DensePoseIUVProvider(weights_pkl=densepose_pkl, device=device)
+
+
+def _run_preprocess(args, device) -> None:
+    from .pipeline import stages
+    from .pipeline.frame_io import Cv2FrameIO
+
+    todo = args.stages or stages.FULL_CHAIN
+    # Built, and its weights found, before any stage runs.
+    provider = (_provider(args.provider, args.densepose_pkl, device)
+                if {"iuv", "cse"} & set(todo) else None)
+    stages.run_stages(_cfg_for("slowfast-HTAH", args), todo, provider, tuple(args.sets),
+                      io=Cv2FrameIO(), device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="video_classification_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -93,11 +121,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("model")
     _add_opts(p)
 
-    p = sub.add_parser("preprocess", help="the offline preprocessing chain (not ported yet)")
-    p.add_argument("--stages", nargs="*", default=None)
+    p = sub.add_parser("preprocess", help="run the offline preprocessing chain")
+    p.add_argument("--stages", nargs="*", default=None,
+                   help="subset: sample images flow energy pad iuv cse crop")
     p.add_argument("--sets", nargs="*", default=["train", "test", "valid"])
     p.add_argument("--provider", choices=["densepose", "synthetic"], default="densepose")
-    p.add_argument("--densepose-pkl", default=None)
+    p.add_argument("--densepose-pkl", default=None,
+                   help="detectron2 model_final_*.pkl for the densepose provider "
+                        "(converted via detect/d2_convert); required by it")
     _add_opts(p)
 
     p = sub.add_parser("sparse-dump", help="dump per-part eval materials")
@@ -166,6 +197,8 @@ def main(argv=None) -> int:
         from .engine import train_unimportant_parts
 
         train_unimportant_parts(cfg_base=_cfg_for("slowfast-HTAH", args), device=device)
+    elif args.cmd == "preprocess":
+        _run_preprocess(args, device)
     elif args.cmd == "eval":
         from .engine import Trainer
 

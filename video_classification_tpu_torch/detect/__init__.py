@@ -19,6 +19,7 @@ from .densepose import (
     generate_anchors,
 )
 from .ops import apply_deltas, box_iou, clip_boxes, multilevel_roi_align, nms, roi_align
+from .provider import DensePoseIUVProvider
 
 __all__ = [
     "roi_align",
@@ -33,6 +34,7 @@ __all__ = [
     "ChartPredictor",
     "Decoder",
     "DensePoseDeepLabHead",
+    "DensePoseIUVProvider",
     "DensePoseRCNN",
     "ResNetFPN",
     "RPNHead",

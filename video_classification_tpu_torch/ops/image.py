@@ -12,7 +12,10 @@ Port of the JAX package's ``ops/image.py``:
   * ``normalize``             - (x/255 - 0.45)/0.225 (chalearn_dataset.py:41-46);
   * ``random_crop_batch``     - torchvision-style RandomCrop of a clip batch
                                 with explicit offsets (``random_crop_offsets``
-                                draws them from a torch.Generator).
+                                draws them from a torch.Generator);
+  * ``resize_linear_u8``,     - the three ``cv2.resize`` calls of the
+    ``resize_nearest``,         DensePose provider (detect/provider.py), each
+    ``resize_linear_f32``       with OpenCV's own arithmetic, on batches.
 
 The JAX package writes the shift and the crop as one-hot matmuls (a TPU
 layout choice); here they are exact gathers. The cubic resampling keeps the JAX form, a
@@ -21,8 +24,9 @@ per-sample (out, canvas) weight matrix applied by a matrix product.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 _CUBIC_A = -0.75  # OpenCV's bicubic coefficient (interpolateCubic)
@@ -160,3 +164,139 @@ def random_crop(clip: torch.Tensor, offset: torch.Tensor, size: int,
                 padding: int) -> torch.Tensor:
     """``random_crop_batch`` of one (T, H, W, C) clip at ``offset`` (oy, ox)."""
     return random_crop_batch(clip[None], offset.reshape(1, 2), size, padding)[0]
+
+
+# -- OpenCV's resize rules ------------------------------------------------------------
+#
+# The provider's three cv2.resize calls (the JAX package's detect/provider.py:110,
+# 162-164), as found by testing against cv2 (tests/test_torch_port_resize_cv2.py):
+#
+#   INTER_NEAREST   src = min(floor(dst * (1 / (dst_n / src_n))), src_n - 1), float64.
+#   INTER_LINEAR    src position p = (dst + 0.5) * scale - 0.5 per axis; the column
+#                   taps clamp at the border (p < 0 or p >= src_n - 1 reads one
+#                   column with weight 1), the row taps only clip their index.
+#     uint8         float32 p, fraction f = p - floor(p) in float32, weights
+#                   round(2048 (1 - f)) and round(2048 f); columns summed in int32,
+#                   rows as ((b0 (r0 >> 4)) >> 16) + ((b1 (r1 >> 4)) >> 16), then
+#                   (+ 2) >> 2 (OpenCV's fixed-point vertical pass).
+#     float32       scale = src_n / dst_n in float64, f = float32(p - floor(p)); each
+#                   pass a + (b - a) * f with one rounding (a fused multiply-add);
+#                   a source with a side of 1 takes OpenCV's generic path instead:
+#                   float32 p, a * (1 - f) + b * f rounded at every step.
+#
+# The taps are a few hundred numbers per axis, made on the host; the gathers and the
+# arithmetic run on the tensor's device, in integer or separately rounded float ops,
+# so the card and the CPU give the same bits.
+
+
+def _positions(src_n: int, dst_n: int, scale: float, float32: bool
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(floor index int64, fraction float32) of p = (dst + 0.5) * scale - 0.5."""
+    p = (np.arange(dst_n) + 0.5) * scale - 0.5
+    if float32:
+        p = p.astype(np.float32)
+        s = np.floor(p).astype(np.int64)
+        return s, (p - s.astype(np.float32)).astype(np.float32)
+    s = np.floor(p).astype(np.int64)
+    return s, (p - s).astype(np.float32)
+
+
+def _linear_taps(src_n: int, dst_n: int, scale: float, float32: bool, clamp: bool):
+    """(i0, i1, f): the two source indices and the float32 weight of i1."""
+    s, f = _positions(src_n, dst_n, scale, float32)
+    if clamp:
+        edge = (s < 0) | (s >= src_n - 1)
+        f = np.where(edge, np.float32(0.0), f)
+        s = np.where(s < 0, 0, np.where(s >= src_n - 1, src_n - 1, s))
+    return np.clip(s, 0, src_n - 1), np.clip(s + 1, 0, src_n - 1), f
+
+
+def _fixed_point(f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's 11-bit weights: round-half-even of 2048 (1 - f) and 2048 f."""
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048.0)).astype(np.int32)
+    return w0, np.rint(f * np.float32(2048.0)).astype(np.int32)
+
+
+def _check_resize(x: torch.Tensor, out_hw, dtype) -> Tuple[int, int]:
+    if x.dim() < 3:
+        raise ValueError(f"expected (B, H, W, ...) images, got {tuple(x.shape)}")
+    if dtype is not None and x.dtype != dtype:
+        raise ValueError(f"expected {dtype}, got {x.dtype}")
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if min(oh, ow, x.shape[1], x.shape[2]) < 1:
+        raise ValueError(f"empty resize {tuple(x.shape[1:3])} -> {(oh, ow)}")
+    return oh, ow
+
+
+def _index(n: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(n, np.int64)).to(dev)
+
+
+def _along(t: np.ndarray, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A per-index weight vector shaped to broadcast along ``dim`` of ``x``."""
+    shape = [1] * x.dim()
+    shape[dim] = t.shape[0]
+    return torch.from_numpy(np.ascontiguousarray(t)).to(x.device).reshape(shape)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """cv2.resize(..., INTER_NEAREST) of (B, H, W, ...) images of any dtype:
+    a gather, so the values are the source's bits."""
+    oh, ow = _check_resize(x, out_hw, None)
+    h, w = x.shape[1:3]
+
+    def rows(src_n, dst_n):
+        return np.minimum(np.floor(np.arange(dst_n) * (1.0 / (dst_n / src_n))),
+                          src_n - 1)
+
+    return x[:, _index(rows(h, oh), x.device)][:, :, _index(rows(w, ow), x.device)]
+
+
+def resize_linear_u8(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """cv2.resize(..., INTER_LINEAR) of (B, H, W, C) uint8 images, bit-exact:
+    OpenCV's fixed-point arithmetic (11-bit weights, an int32 column pass, the
+    vertical pass's shifts) in int32 tensor ops."""
+    oh, ow = _check_resize(x, out_hw, torch.uint8)
+    h, w = x.shape[1:3]
+    x0, x1, fx = _linear_taps(w, ow, w / ow, True, clamp=True)
+    y0, y1, fy = _linear_taps(h, oh, h / oh, True, clamp=False)
+    a0, a1 = _fixed_point(fx)
+    b0, b1 = _fixed_point(fy)
+    src = x.to(torch.int32)
+    cols = (src[:, :, _index(x0, x.device)] * _along(a0, src, 2)
+            + src[:, :, _index(x1, x.device)] * _along(a1, src, 2))
+    top = (cols[:, _index(y0, x.device)] >> 4) * _along(b0, cols, 1)
+    bottom = (cols[:, _index(y1, x.device)] >> 4) * _along(b1, cols, 1)
+    return (((top >> 16) + (bottom >> 16) + 2) >> 2).to(torch.uint8)
+
+
+def _lerp_fma(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """float32(a + (b - a) * f) rounded once at the end, as a fused multiply-add:
+    (b - a) * f of two float32 values is exact in float64, the sum is rounded to
+    float64 and then to float32 (the same as the fused result unless the float64
+    sum lands exactly on a float32 rounding midpoint, a 2**-29 chance)."""
+    return (a.double() + (b - a).double() * f.double()).float()
+
+
+def resize_linear_f32(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """cv2.resize(..., INTER_LINEAR) of (B, H, W, ...) float32 images, bit-exact
+    (the rules above: float64 source positions and a fused lerp per pass, or
+    OpenCV's generic path for a source with a side of 1)."""
+    oh, ow = _check_resize(x, out_hw, torch.float32)
+    h, w = x.shape[1:3]
+    generic = min(h, w) == 1
+    if generic:
+        x0, x1, fx = _linear_taps(w, ow, 1.0 / (ow / w), True, clamp=True)
+        y0, y1, fy = _linear_taps(h, oh, 1.0 / (oh / h), True, clamp=False)
+    else:
+        x0, x1, fx = _linear_taps(w, ow, w / ow, False, clamp=True)
+        y0, y1, fy = _linear_taps(h, oh, h / oh, False, clamp=False)
+
+    def lerp(a, b, f, dim):
+        f = _along(f, a, dim)
+        if generic:
+            return a * (1.0 - f) + b * f
+        return _lerp_fma(a, b, f)
+
+    cols = lerp(x[:, :, _index(x0, x.device)], x[:, :, _index(x1, x.device)], fx, 2)
+    return lerp(cols[:, _index(y0, x.device)], cols[:, _index(y1, x.device)], fy, 1)
