@@ -162,11 +162,44 @@ Then the offline chain (pipeline/stages, detect/provider, pipeline/frame_io):
      but the flow images and flow crops, those within +-1 on >= 99.9 %;
      DensePoseIUVProvider at depth 50, float32, small budgets, card against
      CPU at the detector bars of 9.
+Then the v2 slice (v2/, models/raft.py, tools.render_iuv_boxes):
+ 32. RAFT raft_large at full width: 12 iterations on the flow converter's
+     batch of 64 240x320 frame pairs, weights from the synthesized
+     torchvision-grammar state_dict saved as a .pth and loaded through
+     models/raft_convert.load_raft_checkpoint, in bfloat16 and in float32:
+     ms per batch, pairs/s, peak memory, the counted operations' bound; the
+     flow finite;
+ 33. RAFT at 64x96, 12 iterations, float32 (TF32 off), card against CPU:
+     the up-flow and the coarse flow within 5e-3, or else the card's float64
+     run within 1e-6 of the CPU's and float32 within twice the card's own
+     spread; which bar held is printed;
+ 34. v2-convert's four converters at full width through ArrayFrameIO, one
+     130-frame 240x320 M_ video in train and one in test, three runs on
+     fresh copies: the variational flow with the synthetic provider, with
+     the DensePose provider (profile_preprocess.random_provider), and the
+     RAFT flow (float32) with the synthetic provider; seconds per converter
+     and per video, files written, [T][25] box pkls; the launch counts zeroed
+     just before and read just after each run: K1 (27 calls a video) and K2
+     launch in the variational runs, K3 only with DensePose, K1 not with
+     RAFT, K4-K6 never; K2's calls in the two variational runs (24 masks a
+     frame, at the synthetic 240x320 box in wide words and at the DensePose
+     boxes) each held exactly against the plain version, the count compared
+     and the largest call's time beside its bound printed;
+ 35. V2Trainer at full width (depth 50, INPUT_SIZE 192, CLIP_LEN 20, 249
+     classes, bf16, SGD; batch 16 or the largest of 8, 4 that fits): 3
+     warm-up and 20 timed steps on one batch (ms per step, clips/s, peak
+     memory, a falling loss), then train_epoch(0) in DEBUG and run_eval() on
+     [34]'s folders;
+ 36. a 10-frame 64x96 v2 chain on the card and on the CPU: flow videos
+     within +-1 on >= 99.9 %, UV videos and box pkls equal, the dataset's
+     clips equal in rgb/uv (flow +-1), the 7-channel exact-2x resize equal,
+     one depth-18 float32 V2Trainer step at the bars of 19, render_iuv_boxes
+     writing equal frames.
 Then one JSON line describing each kernel (with its launches per online
-train step, from 18, per ensemble request, from 21, and per offline video,
-from 28 and 29; K1, K2 and K3 with their offline rows from 30), the
-nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero
-without a result when CUDA is unavailable.
+train step, from 18, per ensemble request, from 21, per offline video, from
+28 and 29, and per v2 video, from 34's DensePose run; K1, K2 and K3 with
+their offline rows from 30, K2 with its v2 rows from 34), the nvidia-smi line, and last {"ok": true,
+"device": {...}}. Exits non-zero without a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -1501,7 +1534,6 @@ def train_small_against_cpu(dev, root: str, name: str = "slowfast-small-train",
     other orders (BatchNorm's E[x^2] - E[x]^2 over few values amplifies such
     differences); the phase prints the spread and the float64 gap beside the
     bars."""
-    import numpy as np
     import torch
 
     from video_classification_tpu_torch.config import get_cfg
@@ -1520,19 +1552,32 @@ def train_small_against_cpu(dev, root: str, name: str = "slowfast-small-train",
     cfg.DATA.SYNTHETIC_NUM_VIDEOS = 8
     cfg.DATA.SYNTHETIC_SEQ_LEN = 6
     cfg.DEBUG = True
+    step_card_vs_cpu(dev, name, lambda c, d: Trainer(c, device=d), cfg,
+                     lambda t: next(train_batches(t.train_dataset, 4, seed=0)),
+                     torch.tensor([[0, 3], [12, 5], [6, 6], [1, 11]]), card_spread)
+
+
+def step_card_vs_cpu(dev, name, make, cfg, make_batch, offsets, card_spread=False):
+    """One train step and the eval of trainers ``make(cfg, device)`` on the
+    card and on the CPU from the same weights, batch (``make_batch`` of the
+    CPU trainer) and crop offsets, float32 (TF32 off), dropout 0: loss within
+    1e-4 relative, gradients at the bars of gradient_gaps (against the CPU
+    step in float64), running statistics and eval scores within 5e-3.
+    ``card_spread``: see train_small_against_cpu (a batch of 4)."""
+    import numpy as np
+    import torch
+
     f64 = cfg.clone()
     f64.CUDA.COMPUTE_DTYPE = f64.CUDA.PARAM_DTYPE = "float64"
-    trainers = [Trainer(cfg, device=dev), Trainer(cfg, device="cpu"),
-                Trainer(f64, device="cpu")]
+    trainers = [make(cfg, dev), make(cfg, "cpu"), make(f64, "cpu")]
     if card_spread:  # the card's float32 step on permuted rows, its float64 step
-        trainers += [Trainer(cfg, device=dev), Trainer(f64, device=dev)]
+        trainers += [make(cfg, dev), make(f64, dev)]
     state = {k: v.cpu() for k, v in trainers[0].model.state_dict().items()}
     for t in trainers:
         t.model.load_state_dict(state)
         no_dropout(t.model)
-    b = next(train_batches(trainers[1].train_dataset, 4, seed=0))
+    b = make_batch(trainers[1])
     x, labels = torch.from_numpy(b["x"]), torch.from_numpy(b["label"])
-    offsets = torch.tensor([[0, 3], [12, 5], [6, 6], [1, 11]])
     gpu = trainers[0].train_step(x.to(dev), labels.to(dev), offsets=offsets.to(dev))
     cpu = trainers[1].train_step(x, labels, offsets=offsets)
     trainers[2].train_step(x, labels, offsets=offsets)
@@ -1566,7 +1611,7 @@ def train_small_against_cpu(dev, root: str, name: str = "slowfast-small-train",
         f"{cos:.6f}; running stats at {stats:.3f} of the 5e-3 bar; max|dscore| {score_err:.2e}")
     if (loss_err > 1e-4 or whole > bars[0] or worst > bars[1] or cos < 0.999
             or stats > 1.0 or score_err > SCORE_ATOL):
-        raise AssertionError("the small train step disagrees between card and cpu")
+        raise AssertionError(f"the small {name} train step disagrees between card and cpu")
 
 
 BINDING_CHILD = """
@@ -1956,6 +2001,44 @@ def chain_counts(what, run, must, absent):
     return counts
 
 
+def check_extents_calls(what, calls, chunk_pixels=1 << 24):
+    """K2 exact on every captured call: the kernel on each call's (B, H, W)
+    masks against the plain version on the same masks (calls of one shape
+    stacked, up to ``chunk_pixels`` a plain run); the largest call timed
+    with its route beside its bound (``time_extents``), returned with the
+    count of calls and masks compared."""
+    import torch
+
+    from video_classification_tpu_torch.ops.component_extents import (
+        component_extents, component_extents_reference)
+    from video_classification_tpu_torch.utils.cuda import build
+
+    by_shape = {}
+    for (masks,) in calls:
+        by_shape.setdefault(tuple(masks.shape[1:]), []).append(masks)
+    for (h, w), group in by_shape.items():
+        per = max(1, chunk_pixels // (group[0].shape[0] * h * w))
+        for i in range(0, len(group), per):
+            part = group[i:i + per]
+            got = [torch.cat(f) for f in zip(*(component_extents(m) for m in part))]
+            want = component_extents_reference(torch.cat(part))
+            err = max(int((a.long() - c.long()).abs().max()) for a, c in zip(got, want))
+            if err:
+                raise AssertionError(f"K2 {what} {h}x{w}: max |kernel - plain| {err}")
+    route = build().component_extents_route
+    sizes = sorted(by_shape, key=lambda s: s[0] * s[1])
+    routes = sorted({route(h, w) for h, w in sizes})
+    n_masks = sum(m.shape[0] for (m,) in calls)
+    log(f"  K2 {what}: {len(calls)} calls ({n_masks} masks) exact; box sizes {sizes[0]} to "
+        f"{sizes[-1]} ({len(sizes)} sizes), {' and '.join(routes)} words")
+    largest = max((m for (m,) in calls), key=lambda m: m.numel())
+    h, w = largest.shape[1:]
+    words = route(h, w)
+    row = time_extents(f"{what} {'x'.join(map(str, largest.shape))} part masks", largest,
+                       4 if words == "narrow" else 2, words)
+    return dict(row, calls=len(calls), masks_compared=n_masks)
+
+
 def check_resizes_and_io(dev, work):
     """[27] The provider's three resizes on the card against the CPU,
     exactly (480x640 -> 800x1067 in uint8, and box sizes 1x1 to 480x640
@@ -2139,12 +2222,9 @@ def check_offline_kernels(dev, k1_calls, k3_calls, k2_calls):
     0.7 and the box head's (8, 1000) into 100 at 0.5 timed; K2 exact on
     every frame's six box-sized part masks, the largest batch timed with its
     route and iterations. Each with its bound."""
-    from video_classification_tpu_torch.ops.component_extents import (
-        component_extents, component_extents_reference)
     from video_classification_tpu_torch.ops.flow import DEFAULT_PARAMS as p
     from video_classification_tpu_torch.ops.flow_level import (flow_level,
                                                                flow_level_reference)
-    from video_classification_tpu_torch.utils.cuda import build
 
     err1 = 0.0
     for call in k1_calls:
@@ -2182,20 +2262,7 @@ def check_offline_kernels(dev, k1_calls, k3_calls, k2_calls):
     k3 = [k3[1000], k3[100]]
     log(f"  K3: {len(k3_calls)} offline calls exact")
 
-    route = build().component_extents_route
-    for (masks,) in k2_calls:
-        err = max(int((a.long() - c.long()).abs().max()) for a, c in
-                  zip(component_extents(masks), component_extents_reference(masks)))
-        if err:
-            raise AssertionError(f"K2 offline {tuple(masks.shape)}: max |kernel - plain| {err}")
-    sizes = sorted({tuple(m.shape[1:]) for (m,) in k2_calls}, key=lambda s: s[0] * s[1])
-    log(f"  K2: {len(k2_calls)} frames' part masks exact; box sizes {sizes[0]} to "
-        f"{sizes[-1]} ({len(sizes)} sizes)")
-    largest = max((m for (m,) in k2_calls), key=lambda m: m.numel())
-    h, w = largest.shape[1:]
-    words = route(h, w)
-    k2 = time_extents(f"offline {'x'.join(map(str, largest.shape))} part masks", largest,
-                      4 if words == "narrow" else 2, words)
+    k2 = check_extents_calls("offline", k2_calls)
     return {"flow_level": k1, "nms": k3, "component_extents": k2}
 
 
@@ -2289,6 +2356,381 @@ def offline_small_against_cpu(dev, work):
     if (worst["box"] > 1e-3 or worst["score"] > 1e-4 or worst["chart"] < 0.999
             or worst["uv"] > 1e-3 or worst["compared"] == 0):
         raise AssertionError(f"[31] detector: card and cpu disagree: {worst}")
+
+
+# -- the v2 slice: RAFT, the converters, ChalearnGestureDataset, V2Trainer ---------
+
+V2_PAIRS = 64  # the flow converter's batch of frame pairs
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+
+
+def raft_weights_file(work):
+    """The synthesized raft_large state_dict of seed 0 (torchvision's key
+    grammar and shapes) saved as a .pth under ``work``."""
+    from pathlib import Path
+
+    from video_classification_tpu_torch.models.raft_convert import write_synthesized_checkpoint
+
+    return write_synthesized_checkpoint(Path(work) / "raft_large_synthesized.pth")
+
+
+def raft_from_file(path, dev, dtype):
+    """RAFT (raft_large, 12 iterations) loaded through
+    models/raft_convert.load_raft_checkpoint."""
+    from video_classification_tpu_torch.models.raft import RAFT
+    from video_classification_tpu_torch.models.raft_convert import load_raft_checkpoint
+
+    return load_raft_checkpoint(path, RAFT(num_iters=12, dtype=dtype)).to(dev).eval()
+
+
+def raft_full_width(dev, work, frames):
+    """[32] RAFT raft_large at full width: 12 iterations on the converter's
+    batch of 64 240x320 frame pairs, weights from the synthesized
+    torchvision-grammar .pth through the port's loader, in bfloat16 and in
+    float32 (TF32 off): ms per batch (CUDA events, 3 calls after a warm-up),
+    pairs/s, peak memory, the bound of the counted operations at the dtype's
+    peak; the flow finite. Returns {dtype: row}."""
+    import torch
+
+    from video_classification_tpu_torch.models.raft import flow_ops_per_pair
+
+    path = raft_weights_file(work)
+    x = torch.from_numpy(frames[:V2_PAIRS + 1]).to(dev).flip(-1).float() / 255.0  # RGB
+    im1, im2 = x[:-1].contiguous(), x[1:].contiguous()
+    ops = flow_ops_per_pair(240, 320) * V2_PAIRS
+    rows = {}
+    for dtype, peak_ops in ((torch.bfloat16, PEAK_BF16_OPS_PER_S),
+                            (torch.float32, PEAK_F32_OPS_PER_S)):
+        model = raft_from_file(path, dev, dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(im1, im2), reps=3, warmup=1)
+            up, coarse = model(im1, im2)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(up).all()) and bool(torch.isfinite(coarse).all())
+        bound_ms = 1e3 * ops / peak_ops
+        name = str(dtype).replace("torch.", "")
+        rows[name] = {"ms": ms, "pairs_per_s": V2_PAIRS / ms * 1e3,
+                      "peak_gib": peak / 2 ** 30, "bound_ms": bound_ms,
+                      "max_abs_flow": float(up.abs().max())}
+        log(f"  RAFT {name}: {V2_PAIRS} pairs 240x320, 12 iterations: {ms:.3f} ms per batch, "
+            f"{V2_PAIRS / ms * 1e3:.2f} pairs/s, peak {peak / 2**30:.3f} GiB; "
+            f"{ops / V2_PAIRS / 1e9:.1f} GFLOP a pair counted, bound {bound_ms:.3f} ms at the "
+            f"{name} peak; flow finite {finite}, max|flow| {rows[name]['max_abs_flow']:.3f} px")
+        if not finite or up.shape != (V2_PAIRS, 240, 320, 2) or coarse.shape != (
+                V2_PAIRS, 30, 40, 2):
+            raise AssertionError(f"RAFT {name}: shapes {tuple(up.shape)}, "
+                                 f"{tuple(coarse.shape)}, finite {finite}")
+        del model, up, coarse
+    return rows
+
+
+def raft_against_cpu(dev, work, frames):
+    """[33] RAFT at 64x96, 12 iterations, float32, TF32 off, the same
+    synthesized weights, on the card and on the CPU: the up-flow and the
+    coarse flow within 5e-3. Failing that, the card's float64 run must give
+    the CPU's float64 flow within 1e-6 and the float32 gap must be within
+    twice the card's own float32 spread (its flow with the batch's pairs
+    permuted), as [25] holds the train steps. Returns the bar that held."""
+    import torch
+
+    path = raft_weights_file(work)
+    x = torch.from_numpy(frames[:5, 88:152, 112:208]).flip(-1).float() / 255.0
+    im1, im2 = x[:-1].contiguous(), x[1:].contiguous()
+    rows = torch.tensor([2, 0, 3, 1])
+
+    def run(device, dtype, perm=None):
+        model = raft_from_file(path, device, torch.float32).to(dtype)
+        a, b = (im1, im2) if perm is None else (im1[perm], im2[perm])
+        with torch.inference_mode():
+            up, coarse = model(a.to(device, dtype), b.to(device, dtype))
+        if perm is not None:
+            inverse = torch.argsort(perm)
+            up, coarse = up[inverse], coarse[inverse]
+        return up.double().cpu(), coarse.double().cpu()
+
+    card, cpu = run(dev, torch.float32), run("cpu", torch.float32)
+    err = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+    scale = float(cpu[0].abs().max())
+    log(f"  RAFT 4 pairs 64x96 card vs cpu, float32: max|dflow| {err:.3e} (flow up to "
+        f"{scale:.3f} px)")
+    if err <= 5e-3:
+        log("  bar held: 5e-3")
+        return "5e-3"
+    card64, cpu64 = run(dev, torch.float64), run("cpu", torch.float64)
+    err64 = max(float((a - b).abs().max()) for a, b in zip(card64, cpu64))
+    spread = max(float((a - b).abs().max()) for a, b in zip(run(dev, torch.float32, rows),
+                                                            card))
+    log(f"  float64: card vs cpu {err64:.3e}; the card's float32 flow moves by {spread:.3e} "
+        f"with the pairs permuted")
+    if err64 > 1e-6 or err > 2 * spread:
+        raise AssertionError(f"RAFT card vs cpu: {err} (float64 {err64}, spread {spread})")
+    log(f"  bar held: twice the card's float32 spread ({2 * spread:.3e})")
+    return f"2 x spread {2 * spread:.3e}"
+
+
+def check_v2_outputs(root, frames: int):
+    """The v2 folders of ``root``: per M_ video two flow channel files of
+    frames - 1 frames, an IUV pkl of ``frames`` results, two UV channel
+    files and a [frames][25] box pkl of None or int xyxy with x2 >= x1.
+    Returns (files per v2 folder, boxes found)."""
+    import pickle
+
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.v2 import VideoIO
+
+    vio = VideoIO(ArrayFrameIO())
+    found = 0
+    for m in sorted((root / "1_Sample").rglob("M_*.avi")):
+        rel = m.relative_to(root / "1_Sample")
+        for base, n in (("2_Flow_New", frames - 1), ("5_UV_Video", frames)):
+            for c in (0, 1):
+                f = root / base / rel.parent / f"{c}_{m.name}"
+                if vio.frame_count(f) != n or vio.frame_size(f) != vio.frame_size(m):
+                    raise AssertionError(f"{f}: {vio.frame_count(f)} frames")
+        with (root / "4_IUV_New" / rel.with_suffix(".pkl")).open("rb") as fh:
+            if len(pickle.load(fh)) != frames:
+                raise AssertionError(f"{rel}: IUV pkl length")
+        with (root / "6_Box" / rel.with_suffix(".pkl")).open("rb") as fh:
+            boxes = pickle.load(fh)
+        if len(boxes) != frames or any(len(b) != 25 for b in boxes):
+            raise AssertionError(f"{rel}: box pkl is not a [{frames}][25] list")
+        for b in (b for frame in boxes for b in frame if b is not None):
+            if len(b) != 4 or b[2] < b[0] or b[3] < b[1]:
+                raise AssertionError(f"{rel}: box {b}")
+            found += 1
+    files = {d: sum(1 for p in (root / d).rglob("*") if p.is_file())
+             for d in ("2_Flow_New", "4_IUV_New", "5_UV_Video", "6_Box")}
+    return files, found
+
+
+def v2_convert_full_width(dev, work):
+    """[34] v2-convert's four converters at full width through ArrayFrameIO
+    on one 130-frame 240x320 M_ video in train and one in test: (A) the
+    variational flow with the synthetic provider, (B) with the DensePose
+    provider (profile_preprocess.random_provider), (C) the RAFT flow
+    (float32, the synthesized weights) with the synthetic provider, each on a
+    fresh copy of the sampled fixture: seconds per converter and per video,
+    files per folder, the outputs' shapes; the launch counts zeroed just
+    before and read just after each: K1 and K2 launch in A and B, K3 only in
+    B, K1 not in C, K4-K6 never. K2's calls in A (24 masks a frame at the
+    240x320 box, wide words) and in B (24 at each DensePose box) are kept
+    and each held exactly against the plain version (``check_extents_calls``).
+    Returns (A's root, B's counts, the seconds of each run, K2's rows of A
+    and B)."""
+    import shutil
+    from contextlib import nullcontext
+    from pathlib import Path
+
+    import torch
+
+    import video_classification_tpu_torch.ops.components as components
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.pipeline.iuv_contract import SyntheticIUVProvider
+    from video_classification_tpu_torch.profile_preprocess import (FRAMES, chain_cfg,
+                                                                   random_provider)
+    from video_classification_tpu_torch.profile_v2 import run_v2_convert, write_v2_fixture
+    from video_classification_tpu_torch.utils.profiling import StageTimer
+
+    io = ArrayFrameIO()
+    fixture = Path(work) / "v2_fixture"
+    t0 = time.perf_counter()
+    write_v2_fixture(fixture, io)
+    log(f"  fixture: one {FRAMES}-frame 240x320 M_/K_ pair per set, sampled, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    per_op = ("sor_solve", "warp_bilinear", "label_components")
+    runs = {
+        "A variational + synthetic": ("variational", SyntheticIUVProvider, None,
+                                      ("flow_level", "component_extents"), ("nms",) + per_op),
+        "B variational + DensePose": ("variational", lambda: random_provider(dev), None,
+                                      ("flow_level", "component_extents", "nms"), per_op),
+        "C RAFT + synthetic": ("raft", SyntheticIUVProvider, lambda: raft_weights_file(work),
+                               ("component_extents",), ("flow_level", "nms") + per_op),
+    }
+    out, seconds, roots, k2 = {}, {}, {}, {}
+    for what, (method, make_provider, weights, must, absent) in runs.items():
+        root = Path(work) / f"v2_{what[0]}"
+        shutil.copytree(fixture, root)
+        provider = make_provider()
+        checkpoint = weights() if weights else None
+        timer = StageTimer(dev)
+        keep = method == "variational"  # C's part masks are A's
+        t0 = time.perf_counter()
+        with Recorder(components, "component_extents") if keep else nullcontext() as rec:
+            out[what] = chain_counts(f"[34] {what}", lambda: run_v2_convert(
+                chain_cfg(root), io, dev, provider, method, timer, checkpoint), must, absent)
+        total = time.perf_counter() - t0
+        files, found = check_v2_outputs(root, FRAMES)
+        seconds[what] = {k: round(v / 2, 4) for k, v in timer.seconds.items()}
+        log(f"  {what}: {total:.2f} s for 2 videos; seconds per video by converter "
+            f"{json.dumps(seconds[what])}; files {json.dumps(files)}; {found} part boxes")
+        roots[what] = root
+        del provider, checkpoint
+        if keep:
+            k2[what[0]] = check_extents_calls(f"[34] {what[0]}", rec.calls)
+            del rec
+            torch.cuda.empty_cache()
+    if out["A variational + synthetic"]["flow_level"] != 2 * 27:
+        raise AssertionError("[34]: K1 did not run 27 calls a video")
+    for what in ("B variational + DensePose", "C RAFT + synthetic"):
+        shutil.rmtree(roots[what])
+    return roots["A variational + synthetic"], out["B variational + DensePose"], seconds, k2
+
+
+def v2_train_full_width(dev, root):
+    """[35] V2Trainer at full width (SlowFast-R50 with (5, 2) pathways,
+    depth 50, INPUT_SIZE 192, CLIP_LEN 20, 249 classes, bf16, SGD at
+    slowfast-HTAH's LR): 3 warm-up and 20 timed train steps on one batch of
+    random clips (the largest of 16, 8, 4 that fits): ms per step, clips/s,
+    peak memory, the loss lower after 22 steps than at the first; then
+    train_epoch(0) in DEBUG and run_eval() on [34]'s folders (batch 1).
+    Returns (seconds per step, batch, peak bytes)."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.profile_v2 import time_v2_train_steps, v2_train_cfg
+    from video_classification_tpu_torch.v2 import V2Trainer
+
+    io = ArrayFrameIO()
+    for batch in (16, 8, 4):
+        cfg = v2_train_cfg(root, batch)
+        trainer = V2Trainer(cfg, io=io, device=dev)
+        try:
+            step_s, losses, peak = time_v2_train_steps(trainer, batch, 20)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"  batch {batch} does not fit in device memory; halving it")
+            del trainer
+            torch.cuda.empty_cache()
+    log(f"  V2Trainer: depth {cfg.MODEL.DEPTH}, {cfg.CHALEARN.NUM_CLASS} classes, "
+        f"{cfg.MODEL.INPUT_SIZE} px, CLIP_LEN {cfg.CHALEARN.CLIP_LEN}, "
+        f"{cfg.CUDA.COMPUTE_DTYPE}, SGD lr {cfg.MODEL.LR} momentum 0.9; batch {batch}: "
+        f"{step_s * 1e3:.3f} ms per step, {batch / step_s:.3f} clips/s, peak "
+        f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} at the first step, {losses[10]:.4f} "
+        f"after 10, {losses[-1]:.4f} after 22")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the V2Trainer loss did not fall on a repeated batch: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    cfg = v2_train_cfg(root, 1)
+    trainer = V2Trainer(cfg, io=io, device=dev)
+    t0 = time.perf_counter()
+    m = trainer.train_epoch(0)
+    y = trainer.run_eval()
+    log(f"  train_epoch(0) in DEBUG: loss {m['loss']:.4f}; run_eval(): {len(y['sv'])} video, "
+        f"{y['ps'].shape[0]} clips, acc {y['acc']:.3f}; {time.perf_counter() - t0:.2f} s")
+    if not np.isfinite(m["loss"]) or y["ps"].shape != (6, 249) or y["sv"] != [6]:
+        raise AssertionError(f"[35] epoch and eval: {m}, {y['ps'].shape}, {y['sv']}")
+    return step_s, batch, peak
+
+
+def v2_small_against_cpu(dev, work):
+    """[36] A 10-frame 64x96 v2 chain (two M_ videos per set through
+    ArrayFrameIO, the synthetic provider, flow of 2 outers and 4 sweeps) on
+    the card and on the CPU: the same files, the flow videos within +-1 on
+    >= 99.9 %, the UV videos and box pkls equal; the dataset's clips from
+    the two roots equal in rgb and uv and within +-1 in flow, and
+    resize_linear_u8 on a 7-channel exact-2x crop equal on the card and the
+    CPU; one depth-18 float32 V2Trainer step at [19]'s bars; render_iuv_boxes
+    writing equal frames from both roots."""
+    import pickle
+    import random
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.data.dataset import train_batches
+    from video_classification_tpu_torch.data.fixture import generate_raw_fixture
+    from video_classification_tpu_torch.ops.flow import FlowParams
+    from video_classification_tpu_torch.ops.image import resize_linear_u8
+    from video_classification_tpu_torch.pipeline import stages
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.pipeline.iuv_contract import SyntheticIUVProvider
+    from video_classification_tpu_torch.profile_preprocess import chain_cfg
+    from video_classification_tpu_torch.profile_v2 import run_v2_convert
+    from video_classification_tpu_torch.tools import render_iuv_boxes
+    from video_classification_tpu_torch.v2 import ChalearnGestureDataset, V2Trainer
+
+    io = ArrayFrameIO()
+    roots = {k: Path(work) / f"v2_small_{k}" for k in ("card", "cpu")}
+    cfg = chain_cfg(roots["card"])
+    generate_raw_fixture(cfg, num_videos_per_set=2, num_classes=1, num_frames=10,
+                         hw=(64, 96), sets=OFFLINE_SETS, io=io)
+    stages.sample_data(cfg, OFFLINE_SETS)
+    shutil.copytree(roots["card"], roots["cpu"])
+    flow = FlowParams(n_outer=2, n_sor=4, min_width=16)
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        run_v2_convert(chain_cfg(roots[name]), io, device, SyntheticIUVProvider(),
+                       flow_params=flow)
+    files = {k: sorted(p.relative_to(r).as_posix() for p in r.rglob("*") if p.is_file())
+             for k, r in roots.items()}
+    if files["card"] != files["cpu"]:
+        raise AssertionError("[36]: the card and the CPU wrote different files")
+    worst, flows = 1.0, 0
+    for f in files["card"]:
+        a, b = (roots[k] / f for k in ("card", "cpu"))
+        if f.startswith("2_Flow_New/"):
+            flows += 1
+            worst = min(worst, within(torch.from_numpy(np.load(a)),
+                                      torch.from_numpy(np.load(b)), 1))
+        elif f.endswith(".pkl") and f.startswith("6_Box/"):
+            with a.open("rb") as fa, b.open("rb") as fb:
+                if pickle.load(fa) != pickle.load(fb):
+                    raise AssertionError(f"[36]: {f} differs")
+        elif f.startswith("5_UV_Video/") and a.read_bytes() != b.read_bytes():
+            raise AssertionError(f"[36]: {f} differs")
+    log(f"  small v2 chain: {len(files['card'])} files; {flows} flow videos within +-1 on "
+        f"{worst:.6f}; UV videos and box pkls equal")
+    if worst < FLOW_FRAC:
+        raise AssertionError(f"[36]: flow within +-1 on {worst}")
+
+    def v2cfg(root):
+        c = chain_cfg(root)
+        c.CHALEARN.NUM_CLASS = 3
+        c.CHALEARN.CLIP_LEN = 4
+        c.CHALEARN.BATCH_SIZE = 2
+        c.MODEL.INPUT_SIZE = 64
+        c.MODEL.DEPTH = 18
+        c.MODEL.NAME = "slowfast-v2-small"
+        c.CUDA.COMPUTE_DTYPE = "float32"
+        c.DEBUG = True
+        return c
+
+    clips = [ChalearnGestureDataset(v2cfg(roots[k]), "test", io=io).get_eval_clips(
+        0, random.Random(3))["clips"] for k in ("card", "cpu")]
+    clip_frac = min(within(torch.from_numpy(a[..., 5:]), torch.from_numpy(b[..., 5:]), 1)
+                    for a, b in zip(*clips))
+    if not all(np.array_equal(a[..., :5], b[..., :5]) for a, b in zip(*clips)):
+        raise AssertionError("[36]: the dataset's rgb/uv clips differ")
+    crop = torch.randint(0, 256, (4, 128, 96, 7), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(36))
+    if not torch.equal(resize_linear_u8(crop.to(dev), (64, 48)).cpu(),
+                       resize_linear_u8(crop, (64, 48))):
+        raise AssertionError("[36]: the 7-channel exact-2x resize differs on the card")
+    log(f"  dataset clips: rgb/uv equal, flow within +-1 on {clip_frac:.6f}; the "
+        f"7-channel 2x resize equal on the card and the CPU")
+    if clip_frac < FLOW_FRAC:
+        raise AssertionError(f"[36]: clip flow within +-1 on {clip_frac}")
+
+    step_card_vs_cpu(dev, "V2Trainer", lambda c, d: V2Trainer(c, io=io, device=d),
+                     v2cfg(roots["cpu"]),
+                     lambda t: next(train_batches(t.train_dataset, 2, seed=0)),
+                     torch.tensor([[0, 3], [12, 5]]))
+
+    pkl = sorted((roots["card"] / "4_IUV_New").rglob("*.pkl"))[0]
+    rel = pkl.relative_to(roots["card"] / "4_IUV_New").with_suffix(".avi")
+    for k in ("card", "cpu"):
+        n = render_iuv_boxes(roots[k] / "4_IUV_New" / rel.with_suffix(".pkl"),
+                             roots[k] / "1_Sample" / rel, roots[k] / "render", io=io)
+    drawn = {k: sorted((roots[k] / "render").iterdir()) for k in roots}
+    if n != 10 or [p.name for p in drawn["card"]] != [p.name for p in drawn["cpu"]] or not all(
+            a.read_bytes() == b.read_bytes() for a, b in zip(drawn["card"], drawn["cpu"])):
+        raise AssertionError("[36]: render_iuv_boxes wrote different frames")
+    log(f"  render_iuv_boxes: {n} frames, equal from both roots")
 
 
 def main() -> int:
@@ -2447,6 +2889,24 @@ def main() -> int:
         shutil.rmtree(offline_root, ignore_errors=True)
     offline_videos = len(OFFLINE_SETS)
 
+    v2_root = tempfile.mkdtemp(prefix="v2_", dir=Path(root).parent)
+    try:
+        log("[32] RAFT raft_large at full width (64 pairs of 240x320, 12 iterations)")
+        raft = raft_full_width(dev, v2_root, videos[0][0])
+        log("[33] RAFT small: card vs cpu")
+        raft_bar = raft_against_cpu(dev, v2_root, videos[0][0])
+        log("[34] v2-convert at full width (ArrayFrameIO): variational + synthetic, "
+            "variational + DensePose, RAFT + synthetic")
+        v2_chain_root, v2_counts, v2_s, v2_k2 = v2_convert_full_width(dev, v2_root)
+        log("[35] V2Trainer at full width, then an epoch and eval on [34]'s folders")
+        v2_step_s, v2_batch, v2_peak = v2_train_full_width(dev, v2_chain_root)
+        torch.cuda.empty_cache()
+        log("[36] the small v2 chain, dataset, trainer and render-iuv: card vs cpu")
+        v2_small_against_cpu(dev, v2_root)
+    finally:
+        shutil.rmtree(v2_root, ignore_errors=True)
+    v2_videos = len(OFFLINE_SETS)
+
     def entry(name, source, replaces, launches, k, library_ms=None):
         row = {"name": name, "route": "cuda",
                "source": f"video_classification_tpu_torch/csrc/{source}",
@@ -2456,11 +2916,14 @@ def main() -> int:
                "launches_per_ensemble_request": ens_counts[name] / len(ens_lat),
                "launches_per_offline_video":
                    (chain_counts28[name] + iuv_counts[name]) / offline_videos,
+               "launches_per_v2_video": v2_counts[name] / v2_videos,
                "max_abs_err": k["max_abs_err"],
                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"], "library_ms": library_ms}
         if name in offline:
             row["offline"] = offline[name]
+        if name == "component_extents":
+            row["v2"] = v2_k2
         return row
 
     kernels = [
@@ -2490,7 +2953,11 @@ def main() -> int:
         f"epoch, test {sparse_test_ms:.3f} ms, 2000 epochs {sparse_projected:.2f} s; "
         + "; ".join(f"{n} train step {r[0] * 1e3:.3f} ms at batch {r[1]} "
                     f"({r[1] / r[0]:.3f} clips/s, {r[2] / 2**30:.3f} GiB), request seconds "
-                    f"{[round(x, 3) for x in r[4]]}" for n, r in res.items()))
+                    f"{[round(x, 3) for x in r[4]]}" for n, r in res.items())
+        + f"; RAFT full width {json.dumps(raft)}, card vs cpu bar {raft_bar}; v2-convert "
+        f"seconds per video {json.dumps(v2_s)}; V2Trainer {v2_step_s * 1e3:.3f} ms per step "
+        f"at batch {v2_batch} ({v2_batch / v2_step_s:.3f} clips/s, "
+        f"{v2_peak / 2**30:.3f} GiB)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,14 @@
     ``sparse-train`` fuses them and checkpoints, ``infer --ensemble`` serves
     a video file through the five streams and that checkpoint, and ``infer``
     serves it through one stream;
+  * on a tiny raw fixture with ``VCT_PLATFORM=cpu``: ``v2-convert
+    --provider synthetic`` writes the four v2 folders, ``v2-train`` trains,
+    evaluates and checkpoints, ``tools render-iuv`` writes one image a
+    frame; ``v2-convert`` refuses a DensePose provider without
+    ``--densepose-pkl`` and RAFT without ``--raft-checkpoint``;
   * without ``VCT_PLATFORM=cpu`` and without a card, a command raises;
-  * each subcommand the port does not run yet exits with status 2 and says
-    so.
+  * each subcommand the port does not run yet (``train-parallel``,
+    ``bench``) exits with status 2 and says so.
 """
 
 import contextlib
@@ -119,9 +124,83 @@ def test_a_command_needs_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch
         _run(["eval", "slowfast-LHand", "--root", str(tmp_path)] + OPTS)
 
 
-@pytest.mark.parametrize("argv", [
-    ["train-parallel", "slowfast-HTAH"],
-    ["v2-convert"], ["v2-train"], ["bench"], ["tools", "render-iuv", "a.pkl", "m.avi", "out"]])
+@pytest.mark.parametrize("argv", [["train-parallel", "slowfast-HTAH"], ["bench"]])
 def test_unported_subcommands_exit_nonzero(argv):
     rc, out, err = _run(argv)
     assert rc == 2 and "not ported yet" in err and "ROADMAP" in err and not out
+
+
+V2_OPTS = ["--opts", "CHALEARN.NUM_CLASS", "2", "CHALEARN.SAMPLE_CLASS", "2",
+           "CHALEARN.CLIP_LEN", "4", "CHALEARN.BATCH_SIZE", "2", "MODEL.DEPTH", "18",
+           "MODEL.INPUT_SIZE", "32", "MODEL.MAX_EPOCH", "1", "CUDA.COMPUTE_DTYPE", "float32"]
+
+
+@pytest.fixture(scope="module")
+def v2_workflow(tmp_path_factory):
+    """v2-convert -> v2-train -> tools render-iuv on a tiny raw fixture (two
+    8-frame 48x64 M_/K_ pairs per set, sampled into 1_Sample), cv2 I/O, on
+    the CPU."""
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.data.fixture import generate_raw_fixture
+    from video_classification_tpu_torch.pipeline import stages
+
+    root = tmp_path_factory.mktemp("v2_cli_root")
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = str(root)
+    cfg.CHALEARN.SAMPLE_CLASS = 2
+    generate_raw_fixture(cfg, num_videos_per_set=2, num_classes=2, num_frames=8,
+                         sets=("train", "test"))
+    stages.sample_data(cfg, ("train", "test"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("VCT_PLATFORM", "cpu")
+    common = ["--root", str(root)] + V2_OPTS
+    pkl = root / "4_IUV_New" / "train" / "001" / "M_00001.pkl"
+    video = root / "1_Sample" / "train" / "001" / "M_00001.avi"
+    runs = {}
+    try:
+        for name, argv in (
+                ("v2-convert", ["v2-convert", "--provider", "synthetic"] + common),
+                ("v2-train", ["v2-train"] + common),
+                ("render-iuv", ["tools", "render-iuv", str(pkl), str(video),
+                                str(root / "render")])):
+            runs[name] = _run(argv)
+    finally:
+        mp.undo()
+    return root, runs
+
+
+@pytest.mark.parametrize("name", ["v2-convert", "v2-train", "render-iuv"])
+def test_v2_subcommands_run_on_a_tiny_cpu_root(v2_workflow, name):
+    """The cases that replaced the three v2 entries of
+    test_unported_subcommands_exit_nonzero."""
+    import pickle
+
+    root, runs = v2_workflow
+    rc, out, err = runs[name]
+    assert rc == 0, err
+    if name == "v2-convert":
+        for video in ("train/001/M_00001", "train/002/M_00002", "test/001/M_00001"):
+            for c in (0, 1):
+                for base in ("2_Flow_New", "5_UV_Video"):
+                    assert (root / base / f"{Path(video).parent}/{c}_{Path(video).name}.avi"
+                            ).is_file()
+            with (root / "6_Box" / f"{video}.pkl").open("rb") as f:
+                boxes = pickle.load(f)
+            assert len(boxes) == 8 and all(len(b) == 25 for b in boxes)
+            assert (root / "4_IUV_New" / f"{video}.pkl").is_file()
+    elif name == "v2-train":
+        ckpts = list(Path(root, "logs", "checkpoints", "slowfast-HTAH").glob("*.ckpt"))
+        assert ckpts and "[ckpt_saved]" in out and "[eval]" in out
+    else:
+        assert out == "wrote 8 frames\n"
+        assert sorted(p.name for p in (root / "render").iterdir()) == [
+            f"{i:05d}.jpg" for i in range(8)]
+
+
+def test_v2_convert_refuses_to_guess_weights(tmp_path, monkeypatch):
+    monkeypatch.setenv("VCT_PLATFORM", "cpu")
+    with pytest.raises(SystemExit, match="--densepose-pkl"):
+        _run(["v2-convert", "--root", str(tmp_path)])
+    with pytest.raises(SystemExit, match="--raft-checkpoint"):
+        _run(["v2-convert", "--root", str(tmp_path), "--provider", "synthetic",
+              "--flow-method", "raft"])

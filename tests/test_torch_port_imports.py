@@ -2,8 +2,8 @@
 
 Run in subprocesses, because tests/conftest.py imports jax:
 importing every module of ``video_classification_tpu_torch`` (the train,
-ensemble and offline-chain slices' among them) pulls in neither jax, flax,
-optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
+ensemble, offline-chain and v2 slices' among them) pulls in neither jax,
+flax, optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
 --help`` lists the JAX CLI's subcommands; ``chip_smoke.py`` refuses to run
 without CUDA, and outside a checkout.
 In-process: entry points default to CUDA and raise when there is none; the
@@ -31,6 +31,8 @@ ENSEMBLE_SLICE = ("__main__", "engine.sparse", "models.res3d", "models.resnet2d"
 OFFLINE_SLICE = ("data.fixture", "detect.provider", "pipeline.frame_io",
                  "pipeline.iuv_contract", "pipeline.stages", "profile_preprocess",
                  "utils.chapath", "utils.chunked")
+V2_SLICE = ("models.raft", "models.raft_convert", "profile_v2", "v2", "v2.convert",
+            "v2.dataset", "v2.part_compose", "v2.trainer", "v2.video_io")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -48,13 +50,13 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE!r}\n"
+        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE + V2_SLICE!r}\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38
+    assert int(out.stdout.split()[-1]) >= 60
 
 
 def test_cli_help_lists_the_jax_subcommands():
@@ -98,6 +100,32 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_v2_needs_the_card_unless_asked_for_the_cpu(tmp_path):
+    """The v2 converters, the model manager and the trainer resolve their
+    device first; a missing card never moves them to the CPU."""
+    from video_classification_tpu_torch.config import get_cfg
+    from video_classification_tpu_torch.models.raft_convert import write_synthesized_checkpoint
+    from video_classification_tpu_torch.pipeline.frame_io import ArrayFrameIO
+    from video_classification_tpu_torch.v2 import (ConvertIuvPklToPartBox,
+                                                   ConvertVideoToFlow, V2ModelManager,
+                                                   V2Trainer)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_cfg()
+    cfg.CHALEARN.ROOT = str(tmp_path)
+    io = ArrayFrameIO()
+    ckpt = write_synthesized_checkpoint(tmp_path / "raft.pth")
+    for call in (lambda: ConvertVideoToFlow(cfg, io=io),
+                 lambda: ConvertVideoToFlow(cfg, method="raft", io=io, raft_checkpoint=ckpt),
+                 lambda: ConvertIuvPklToPartBox(cfg, io=io),
+                 lambda: V2ModelManager(cfg),
+                 lambda: V2Trainer(cfg, io=io)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    ConvertIuvPklToPartBox(cfg, io=io, device="cpu").convert()  # no pickles, on the CPU
 
 
 def test_offline_chain_needs_the_card_unless_asked_for_the_cpu(tmp_path):

@@ -7,6 +7,13 @@ provider's ResizeShortestEdge of a 480x640 padded frame to 800x1067,
 1-pixel outputs and sources, an exact 2x downscale (which OpenCV runs as
 INTER_AREA), and Hypothesis over sizes. Batched calls equal per-image
 calls.
+
+The v2 dataset's clips (7 channels, ``v2/dataset.py``) go through
+``resize_linear_u8`` too: with more than 4 channels, an exact 2x downscale
+on both axes is OpenCV's area mean (the 2x2 sum / 4 rounded half to even),
+held here on 5-8 channels with Hypothesis over sizes (exact 2x and 2x2 ->
+1x1 among them); with 3 and 4 channels the exact 2x case keeps the
+fixed-point rule, and both agree with cv2.
 """
 
 import cv2
@@ -90,3 +97,43 @@ def test_bad_inputs_raise():
         resize_linear_f32(torch.zeros((1, 4, 4)), (0, 2))
     with pytest.raises(ValueError):
         resize_nearest(torch.zeros((4, 4), dtype=torch.uint8), (2, 2))
+
+
+def _u8_check(images, hw, note=""):
+    got = resize_linear_u8(torch.from_numpy(images), hw).numpy()
+    want = _cv2(images, hw, cv2.INTER_LINEAR)
+    np.testing.assert_array_equal(got, want.reshape(got.shape), err_msg=note)
+
+
+@pytest.mark.parametrize("c", [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("src", [(2, 2), (4, 6), (128, 128), (128, 96), (58, 34)])
+def test_exact_2x_downscale_every_channel_count(c, src):
+    """> 4 channels: OpenCV's area rule; 3 and 4: the fixed-point rule, as
+    before (the offline chain's 3-channel frames are unchanged)."""
+    images = np.random.RandomState(c + src[0]).randint(0, 256, (2,) + src + (c,)).astype(
+        np.uint8)
+    _u8_check(images, (src[0] // 2, src[1] // 2), f"{src} x{c}")
+
+
+def test_area_rule_rounds_half_to_even():
+    """2x2 sums of 4k + 2 land on a half: 2, 6, 10 -> 0, 2, 2 (half to even)."""
+    sums = np.asarray([2, 6, 10, 14, 1, 3, 1018, 1020], np.int64)
+    images = np.zeros((1, 2, 16, 5), np.uint8)
+    for i, total in enumerate(sums):  # spread each sum over a 2x2 block
+        q, r = divmod(int(total), 4)
+        block = np.full(4, q) + (np.arange(4) < r)
+        images[0, :, 2 * i:2 * i + 2, :] = block.reshape(2, 2, 1)
+    _u8_check(images, (1, 8))
+    got = resize_linear_u8(torch.from_numpy(images), (1, 8)).numpy()[0, 0, :, 0]
+    np.testing.assert_array_equal(got, np.rint(sums / 4).astype(np.uint8))
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(h=st.integers(1, 90), w=st.integers(1, 90), oh=st.integers(1, 140),
+       ow=st.integers(1, 140), c=st.integers(5, 8), seed=st.integers(0, 2 ** 16),
+       halve=st.booleans())
+def test_random_sizes_with_5_to_8_channels_are_exact(h, w, oh, ow, c, seed, halve):
+    if halve:  # an exact 2x downscale on both axes
+        h, w, oh, ow = 2 * max(h // 2, 1), 2 * max(w // 2, 1), max(h // 2, 1), max(w // 2, 1)
+    images = np.random.RandomState(seed).randint(0, 256, (2, h, w, c)).astype(np.uint8)
+    _u8_check(images, (oh, ow), f"seed {seed}")

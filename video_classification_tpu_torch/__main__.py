@@ -10,17 +10,21 @@ this package runs:
     python -m video_classification_tpu_torch sparse-dump
     python -m video_classification_tpu_torch sparse-train
     python -m video_classification_tpu_torch infer M_00001.avi [--depth K_00001.avi] [--ensemble]
+    python -m video_classification_tpu_torch v2-convert --root /data/ChaLearn [--provider synthetic]
+    python -m video_classification_tpu_torch v2-train [--model slowfast-HTAH]
     python -m video_classification_tpu_torch tools how-many-classes <labels.txt>
+    python -m video_classification_tpu_torch tools render-iuv <iuv.pkl> <M_video.avi> <out_dir>
 
 ``--opts KEY VALUE ...`` merges dotted config overrides last; ``--root`` is
 CHALEARN.ROOT. Everything runs on the CUDA card and raises without one;
 ``VCT_PLATFORM=cpu`` runs it on the CPU instead (the kernels' plain
-versions), the variable the JAX package's CLI reads. ``preprocess``
-reads and writes JPEG and AVI files through ``cv2`` (``Cv2FrameIO``), as the
-JAX CLI does; its DensePose provider needs ``--densepose-pkl``.
-``train-parallel``, ``v2-convert``, ``v2-train``, ``bench`` and ``tools
-render-iuv`` are not ported yet: they exit with status 2, naming the
-ROADMAP item that ports them.
+versions), the variable the JAX package's CLI reads. ``preprocess``,
+``v2-convert``, ``v2-train`` and ``tools render-iuv`` read and write JPEG
+and AVI files through ``cv2`` (``Cv2FrameIO``), as the JAX CLI does; their
+DensePose provider needs ``--densepose-pkl``, and ``v2-convert
+--flow-method raft`` needs ``--raft-checkpoint``. ``train-parallel`` and
+``bench`` are not ported yet: they exit with status 2, naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -33,10 +37,7 @@ from pathlib import Path
 # Subcommand (or tool) -> the ROADMAP queue-1 item that ports it.
 NOT_PORTED = {
     "train-parallel": "11 (parallelism)",
-    "v2-convert": "10 (v2 slice)",
-    "v2-train": "10 (v2 slice)",
     "bench": "the first benchmark cell (ROADMAP, Open items)",
-    "render-iuv": "10 (v2 slice: it reads videos through v2's VideoIO)",
 }
 
 
@@ -69,7 +70,7 @@ def _device():
     raise SystemExit(f"VCT_PLATFORM={plat!r}: use 'cpu', 'cuda' or leave it unset")
 
 
-def _provider(kind, densepose_pkl, device):
+def _provider(cmd, kind, densepose_pkl, device):
     if kind == "synthetic":
         from .pipeline.iuv_contract import SyntheticIUVProvider
 
@@ -77,7 +78,7 @@ def _provider(kind, densepose_pkl, device):
     from .detect.provider import DensePoseIUVProvider
 
     if densepose_pkl is None:
-        raise SystemExit("preprocess --provider densepose needs --densepose-pkl (a "
+        raise SystemExit(f"{cmd} --provider densepose needs --densepose-pkl (a "
                          "detectron2 model_final_*.pkl): a randomly initialised "
                          "detector gives meaningless IUV")
     return DensePoseIUVProvider(weights_pkl=densepose_pkl, device=device)
@@ -89,10 +90,28 @@ def _run_preprocess(args, device) -> None:
 
     todo = args.stages or stages.FULL_CHAIN
     # Built, and its weights found, before any stage runs.
-    provider = (_provider(args.provider, args.densepose_pkl, device)
+    provider = (_provider("preprocess", args.provider, args.densepose_pkl, device)
                 if {"iuv", "cse"} & set(todo) else None)
     stages.run_stages(_cfg_for("slowfast-HTAH", args), todo, provider, tuple(args.sets),
                       io=Cv2FrameIO(), device=device)
+
+
+def _run_v2_convert(args, device) -> None:
+    from .pipeline.frame_io import Cv2FrameIO
+    from .v2 import (ConvertIuvPklToPartBox, ConvertIuvPklToUvVideo, ConvertVideoToFlow,
+                     ConvertVideoToIUVPkl)
+
+    if args.flow_method == "raft" and args.raft_checkpoint is None:
+        raise SystemExit("v2-convert --flow-method raft needs --raft-checkpoint (a "
+                         "torchvision raft_large .pth): random weights give meaningless flow")
+    cfg = _cfg_for("slowfast-HTAH", args)
+    io = Cv2FrameIO()
+    provider = _provider("v2-convert", args.provider, args.densepose_pkl, device)
+    ConvertVideoToFlow(cfg, method=args.flow_method, raft_checkpoint=args.raft_checkpoint,
+                       io=io, device=device).convert()
+    ConvertVideoToIUVPkl(cfg, provider, io=io).convert()
+    ConvertIuvPklToUvVideo(cfg, io=io).convert()
+    ConvertIuvPklToPartBox(cfg, io=io, device=device).convert()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,13 +155,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("sparse-train", help="train the sparse fusion layer")
     _add_opts(p)
 
-    p = sub.add_parser("v2-convert", help="the v2 video-native converters (not ported yet)")
+    p = sub.add_parser("v2-convert", help="run the v2 video-native converters")
     p.add_argument("--provider", choices=["densepose", "synthetic"], default="densepose")
-    p.add_argument("--densepose-pkl", default=None)
+    p.add_argument("--densepose-pkl", default=None,
+                   help="detectron2 pkl for the densepose provider; required by it")
     p.add_argument("--flow-method", choices=["variational", "raft"], default="variational")
-    p.add_argument("--raft-checkpoint", default=None)
+    p.add_argument("--raft-checkpoint", default=None,
+                   help="torchvision raft_large .pth for --flow-method raft; required by it")
     _add_opts(p)
-    p = sub.add_parser("v2-train", help="train the v2 (5,2)-pathway model (not ported yet)")
+    p = sub.add_parser("v2-train", help="train the v2 (5,2)-pathway model")
     p.add_argument("--model", default="slowfast-HTAH")
     _add_opts(p)
 
@@ -162,7 +183,7 @@ def build_parser() -> argparse.ArgumentParser:
     tool_sub = p.add_subparsers(dest="tool", required=True)
     t = tool_sub.add_parser("how-many-classes")
     t.add_argument("labels_txt")
-    t = tool_sub.add_parser("render-iuv", help="(not ported yet)")
+    t = tool_sub.add_parser("render-iuv", help="draw an IUV pkl's boxes on a video's frames")
     t.add_argument("iuv_pkl")
     t.add_argument("video")
     t.add_argument("out_dir")
@@ -213,6 +234,13 @@ def main(argv=None) -> int:
 
         best = SparseTrainer(_cfg_for("slowfast-HTAH", args), device=device).train()
         print(f"best accuracy: {best:.4f}")
+    elif args.cmd == "v2-convert":
+        _run_v2_convert(args, device)
+    elif args.cmd == "v2-train":
+        from .pipeline.frame_io import Cv2FrameIO
+        from .v2 import V2Trainer
+
+        V2Trainer(_cfg_for(args.model, args), io=Cv2FrameIO(), device=device).train()
     elif args.cmd == "infer":
         if args.ensemble:
             from .engine import EnsemblePredictor
@@ -229,7 +257,14 @@ def main(argv=None) -> int:
     elif args.cmd == "tools":
         from . import tools
 
-        tools.how_many_classes(Path(args.labels_txt))
+        if args.tool == "how-many-classes":
+            tools.how_many_classes(Path(args.labels_txt))
+        elif args.tool == "render-iuv":
+            from .pipeline.frame_io import Cv2FrameIO
+
+            n = tools.render_iuv_boxes(Path(args.iuv_pkl), Path(args.video),
+                                       Path(args.out_dir), io=Cv2FrameIO())
+            print(f"wrote {n} frames")
     return 0
 
 

@@ -62,6 +62,10 @@ class ModelManager:
         init_weights(model, gen)
         return model.to(self.device, self.param_dtype).eval()
 
+    def _normalize(self, x_uint8: torch.Tensor) -> torch.Tensor:
+        """A uint8 part of the batch, normalized in the compute dtype."""
+        return normalize(x_uint8, self.compute_dtype)
+
     @property
     def crop_padding(self) -> int:
         return self.crop_size // 10
@@ -83,7 +87,7 @@ class ModelManager:
         space) at the same per-sample window."""
         out = []
         for lo, hi in self._channels:
-            x = normalize(x_uint8[..., lo:hi], self.compute_dtype)
+            x = self._normalize(x_uint8[..., lo:hi])
             if offsets is not None:
                 x = random_crop_batch(x, offsets, self.crop_size, self.crop_padding)
             out.append(self._layout(x))

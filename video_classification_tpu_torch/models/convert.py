@@ -106,3 +106,36 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     for coll in ("params", "batch_stats"):
         walk(dict(variables.get(coll, {})), ())
     return out
+
+
+def raft_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's RAFT variables ``{'params', 'batch_stats'}`` (numpy)
+    -> the port's ``RAFT`` state_dict, in torchvision's key grammar: the
+    layout transforms of the JAX ``raft_torch_to_flax`` reversed (conv HWIO
+    -> OIHW, BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
+    running_var, ``num_batches_tracked`` 0). The motion encoder's first conv
+    takes the shape it has in ``variables`` (fewer pyramid levels on a small
+    input)."""
+    from .raft_convert import flax_path, raft_key_shapes
+
+    out: Dict[str, torch.Tensor] = {}
+    for key in raft_key_shapes():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            out[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        path, is_norm = flax_path(key)
+        if is_norm:
+            coll, name = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                          "running_mean": ("batch_stats", "mean"),
+                          "running_var": ("batch_stats", "var")}[leaf]
+        else:
+            coll, name = "params", {"weight": "kernel", "bias": "bias"}[leaf]
+        node = variables[coll]
+        for p in path:
+            node = node[p]
+        arr = np.asarray(node[name], np.float32)
+        if name == "kernel":
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

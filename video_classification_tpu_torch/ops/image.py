@@ -15,7 +15,9 @@ Port of the JAX package's ``ops/image.py``:
                                 draws them from a torch.Generator);
   * ``resize_linear_u8``,     - the three ``cv2.resize`` calls of the
     ``resize_nearest``,         DensePose provider (detect/provider.py), each
-    ``resize_linear_f32``       with OpenCV's own arithmetic, on batches.
+    ``resize_linear_f32``       with OpenCV's own arithmetic, on batches;
+                                ``resize_linear_u8`` is also the v2 dataset's
+                                7-channel clip resize (v2/dataset.py).
 
 The JAX package writes the shift and the crop as one-hot matmuls (a TPU
 layout choice); here they are exact gathers. The cubic resampling keeps the JAX form, a
@@ -179,6 +181,9 @@ def random_crop(clip: torch.Tensor, offset: torch.Tensor, size: int,
 #                   round(2048 (1 - f)) and round(2048 f); columns summed in int32,
 #                   rows as ((b0 (r0 >> 4)) >> 16) + ((b1 (r1 >> 4)) >> 16), then
 #                   (+ 2) >> 2 (OpenCV's fixed-point vertical pass).
+#     uint8, exact  with more than 4 channels OpenCV runs an exact 2x downscale on
+#     2x, C > 4     both axes as INTER_AREA: the 2x2 sum / 4 rounded half to even.
+#                   (With <= 4 channels the fixed-point rule above gives its bits.)
 #     float32       scale = src_n / dst_n in float64, f = float32(p - floor(p)); each
 #                   pass a + (b - a) * f with one rounding (a fused multiply-add);
 #                   a source with a side of 1 takes OpenCV's generic path instead:
@@ -252,12 +257,25 @@ def resize_nearest(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
     return x[:, _index(rows(h, oh), x.device)][:, :, _index(rows(w, ow), x.device)]
 
 
+def _area_2x_u8(x: torch.Tensor) -> torch.Tensor:
+    """(B, 2h, 2w, C) uint8 -> (B, h, w, C): each 2x2 block's sum / 4,
+    rounded half to even, in integer ops."""
+    b, h2, w2, c = x.shape
+    s = x.to(torch.int32).reshape(b, h2 // 2, 2, w2 // 2, 2, c).sum(dim=(2, 4))
+    q, r = s >> 2, s & 3
+    up = (r > 2) | ((r == 2) & ((q & 1) == 1))
+    return (q + up.to(torch.int32)).to(torch.uint8)
+
+
 def resize_linear_u8(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
     """cv2.resize(..., INTER_LINEAR) of (B, H, W, C) uint8 images, bit-exact:
     OpenCV's fixed-point arithmetic (11-bit weights, an int32 column pass, the
-    vertical pass's shifts) in int32 tensor ops."""
+    vertical pass's shifts) in int32 tensor ops; an exact 2x downscale of
+    more than 4 channels as OpenCV's area mean (the rules above)."""
     oh, ow = _check_resize(x, out_hw, torch.uint8)
     h, w = x.shape[1:3]
+    if h == 2 * oh and w == 2 * ow and x.dim() == 4 and x.shape[3] > 4:
+        return _area_2x_u8(x)
     x0, x1, fx = _linear_taps(w, ow, w / ow, True, clamp=True)
     y0, y1, fy = _linear_taps(h, oh, h / oh, True, clamp=False)
     a0, a1 = _fixed_point(fx)

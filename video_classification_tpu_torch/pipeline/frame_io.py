@@ -18,7 +18,10 @@ passes one:
     I/O-bound stages measured through it exclude JPEG and AVI coding.
 
 Images are BGR ``(H, W, 3)`` or gray ``(H, W)`` uint8 arrays; videos are
-lists of BGR frames.
+lists of BGR frames, or of gray frames (the v2 pipeline's one-channel
+videos, ``v2/video_io.py``). Besides whole-video reads, a backend reads the
+frames at given indices (``read_frames``), a video's frame count and its
+frame size, which is what the v2 pipeline asks of a video file.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ class Cv2FrameIO:
                 "without a codec") from e
         self._cv2 = cv2
 
-    def read_video(self, path) -> List[np.ndarray]:
+    def read_video(self, path, gray: bool = False) -> List[np.ndarray]:
+        """Every frame, BGR, or converted to gray (COLOR_BGR2GRAY)."""
         cap = self._cv2.VideoCapture(str(path))
         frames = []
         try:
@@ -50,10 +54,51 @@ class Cv2FrameIO:
                 ok, frame = cap.read()
                 if not ok:
                     break
-                frames.append(frame)
+                frames.append(self._cv2.cvtColor(frame, self._cv2.COLOR_BGR2GRAY)
+                              if gray else frame)
         finally:
             cap.release()
         return frames
+
+    def read_frames(self, path, indices: Sequence[int]) -> np.ndarray:
+        """(len(indices), H, W, 3) BGR frames at ``indices``, decoded in
+        sequence up to the last one asked for (OpenCV has no random access)."""
+        cap = self._cv2.VideoCapture(str(path))
+        if not cap.isOpened():
+            raise FileNotFoundError(f"cv2 could not open {path}")
+        need = sorted(set(int(i) for i in indices))
+        got = {}
+        idx = 0
+        try:
+            ok, frame = cap.read()
+            while ok and need:
+                if idx == need[0]:
+                    got[idx] = frame
+                    need.pop(0)
+                idx += 1
+                if need:
+                    ok, frame = cap.read()
+        finally:
+            cap.release()
+        if need:
+            raise IndexError(f"frames {need} out of range in {path}")
+        return np.stack([got[int(i)] for i in indices])
+
+    def _property(self, path, prop) -> int:
+        cap = self._cv2.VideoCapture(str(path))
+        try:
+            return int(cap.get(prop))
+        finally:
+            cap.release()
+
+    def frame_count(self, path) -> int:
+        """The container's frame count (CAP_PROP_FRAME_COUNT)."""
+        return self._property(path, self._cv2.CAP_PROP_FRAME_COUNT)
+
+    def frame_size(self, path):
+        """(H, W) of a video's frames, from the container."""
+        return (self._property(path, self._cv2.CAP_PROP_FRAME_HEIGHT),
+                self._property(path, self._cv2.CAP_PROP_FRAME_WIDTH))
 
     def imread(self, path, gray: bool = False) -> np.ndarray:
         flag = self._cv2.IMREAD_GRAYSCALE if gray else self._cv2.IMREAD_COLOR
@@ -69,12 +114,16 @@ class Cv2FrameIO:
             raise OSError(f"cv2 could not write {path}")
 
     def write_video(self, path, frames: Sequence[np.ndarray], fps: float = 10.0) -> None:
+        """An MJPG AVI; gray (H, W) frames are written with ``isColor=False``,
+        as the JAX package's v2 ``VideoIO`` writes them."""
         h, w = frames[0].shape[:2]
         writer = self._cv2.VideoWriter(str(path), self._cv2.VideoWriter_fourcc(*"MJPG"),
-                                       fps, (w, h))
+                                       fps, (w, h), frames[0].ndim == 3)
+        if not writer.isOpened():
+            raise OSError(f"cv2 could not open {path} for writing")
         try:
             for frame in frames:
-                writer.write(frame)
+                writer.write(np.ascontiguousarray(frame))
         finally:
             writer.release()
 
@@ -82,14 +131,35 @@ class Cv2FrameIO:
 class ArrayFrameIO:
     """Lossless ``.npy`` payloads at the reference's file names.
 
-    An "image" file holds one array, a "video" file the (T, H, W, 3) stack
-    of its frames. Reading a gray payload in colour repeats it over three
-    channels, as ``cv2.imread`` does with a gray JPEG; reading a colour
-    payload in gray raises (OpenCV's BGR-to-gray rounding is not
-    reproduced, and no stage asks for it)."""
+    An "image" file holds one array, a "video" file the (T, H, W, 3) or,
+    gray, (T, H, W) stack of its frames. Reading a gray payload in colour
+    repeats it over three channels, as ``cv2.imread`` does with a gray JPEG;
+    reading a colour payload in gray raises (OpenCV's BGR-to-gray rounding
+    is not reproduced, and no stage asks for it)."""
 
-    def read_video(self, path) -> List[np.ndarray]:
-        return list(np.load(path))
+    def read_video(self, path, gray: bool = False) -> List[np.ndarray]:
+        """Every frame; in gray only from a gray stack (a colour one raises,
+        as ``imread`` does)."""
+        stack = np.load(path)
+        if gray and stack.ndim != 3:
+            raise ValueError(f"{path} holds a colour video; read it in colour")
+        return list(stack)
+
+    def read_frames(self, path, indices: Sequence[int]) -> np.ndarray:
+        """The frames at ``indices``: (n, H, W, 3), or (n, H, W) of a gray
+        video."""
+        stack = np.load(path, mmap_mode="r")
+        idx = np.asarray(indices, np.int64)
+        bad = sorted(set(int(i) for i in idx if not 0 <= i < stack.shape[0]))
+        if bad:
+            raise IndexError(f"frames {bad} out of range in {path}")
+        return np.ascontiguousarray(stack[idx])
+
+    def frame_count(self, path) -> int:
+        return int(np.load(path, mmap_mode="r").shape[0])
+
+    def frame_size(self, path):
+        return tuple(int(n) for n in np.load(path, mmap_mode="r").shape[1:3])
 
     def imread(self, path, gray: bool = False) -> np.ndarray:
         img = np.load(path)

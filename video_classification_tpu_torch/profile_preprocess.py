@@ -95,6 +95,37 @@ def stage_files(root) -> dict:
             for d in sorted(Path(root).iterdir()) if d.is_dir()}
 
 
+def check_launches(launches: dict, required, what: str) -> None:
+    """Raise unless exactly the kernels in ``required`` launched."""
+    for k in KERNELS:
+        if (launches[k.__name__] > 0) != (k.__name__ in required):
+            raise RuntimeError(f"{k.__name__}: {launches[k.__name__]} launches on {what}")
+
+
+def kernel_summary(prof, run_s: float, top: int = 12) -> dict:
+    """The profiled run's device kernel ms and launches by group
+    (``profile_serving``'s groups), their sum, the busy share against an
+    unprofiled run of ``run_s`` seconds, and the ``top`` kernels."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
+    for e in kernels:
+        g = groups[_group(e.key)]
+        g["ms"] += _device_us(e) / 1e3
+        g["launches"] += int(e.count)
+    device_ms = sum(g["ms"] for g in groups.values())
+    return {
+        "device_kernel_ms": round(device_ms, 3),
+        "device_busy_share": (round(device_ms / 1e3 / run_s, 4) if device_ms
+                              else "not measured"),
+        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
+                   for g, v in groups.items()},
+        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
+                         "launches": int(e.count)}
+                        for e in sorted(kernels, key=_device_us, reverse=True)[:top]],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--provider", choices=("densepose", "synthetic"), default="densepose")
@@ -136,19 +167,9 @@ def main(argv=None) -> int:
     required = ["flow_level", "component_extents"]
     if args.provider == "densepose":
         required.append("nms")
-    for k in KERNELS:
-        if (launches[k.__name__] > 0) != (k.__name__ in required):
-            raise RuntimeError(f"{k.__name__}: {launches[k.__name__]} launches on the chain")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
-    for e in kernels:
-        g = groups[_group(e.key)]
-        g["ms"] += _device_us(e) / 1e3
-        g["launches"] += int(e.count)
-    device_ms = sum(g["ms"] for g in groups.values())
+    check_launches(launches, required, "the chain")
+    summary = kernel_summary(prof, timed_s)
     videos = len(SETS)
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "provider": args.provider,
@@ -164,13 +185,7 @@ def main(argv=None) -> int:
         "launches": launches,
         "launches_per_video": {k: v / videos for k, v in launches.items()},
         "files": files,
-        "device_kernel_ms": round(device_ms, 3),
-        "device_busy_share": (round(device_ms / 1e3 / timed_s, 4) if device_ms
-                              else "not measured"),
-        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
-                   for g, v in groups.items()},
-        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
-                         "launches": int(e.count)} for e in top],
+        **summary,
     }, indent=1))
     return 0
 
