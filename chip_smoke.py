@@ -195,10 +195,38 @@ Then the v2 slice (v2/, models/raft.py, tools.render_iuv_boxes):
      clips equal in rgb/uv (flow +-1), the 7-channel exact-2x resize equal,
      one depth-18 float32 V2Trainer step at the bars of 19, render_iuv_boxes
      writing equal frames.
+Then the parallel slice (native/, parallel/, remat, engine/parallel_streams):
+ 37. the native clip loader: whether jpeglib.h is found and cv2 encodes
+     JPEG on this machine, whether the loader builds (into .torch_ext/native;
+     a failed build with jpeglib.h present fails the run); where it builds,
+     a full-width JPEG crop-folder fixture (16 CropHTAH videos of 20 frames),
+     a Trainer with DATA.BACKEND auto that must take the native loader, the
+     decode of a batch of 16 timed against a bf16 train step; where it does
+     not, why, and auto reading with cv2;
+ 38. K3 past N = 8192 (the device-memory route): N = 10000 and 20000, 4
+     frames, thresholds 0.7 and 0.5, 1000 slots, exact against the plain
+     version, timed beside the bound;
+ 39. remat at full width (bf16, batch 16): ms per step and peak memory with
+     none, '' and 'conv'; the running statistics after one step equal to no
+     remat's; then 'conv' at batches 32, 48, 64, 96 until CUDA out of memory
+     (the measured limit; any other exception fails);
+ 40. two gloo ranks sharing the card train slowfast-HTAH at full width
+     (float32, global batch 16) for two steps and evaluate: bit-equal to
+     each other, matching the one-process run (first loss within 1e-5,
+     first gradients and the state at the train bars, the eval exact but
+     scores within 5e-3); one NCCL rank (world size 1) trains one step; ms
+     per step of each;
+ 41. `python -m video_classification_tpu_torch train-parallel slowfast-HTAH
+     slowfast-Torso` at full width (bf16, batch 16, one epoch of one step)
+     against `train` of each in sequence: wall times, each stream's final
+     checkpoint within the train bars; conv3d_temporal_sharded over two gloo
+     ranks at a res4 conv_a's full-width shape against the unsharded
+     convolution (TF32 off).
 Then one JSON line describing each kernel (with its launches per online
 train step, from 18, per ensemble request, from 21, per offline video, from
 28 and 29, and per v2 video, from 34's DensePose run; K1, K2 and K3 with
-their offline rows from 30, K2 with its v2 rows from 34), the nvidia-smi line, and last {"ok": true,
+their offline rows from 30, K2 with its v2 rows from 34, K3 with its rows
+past 8192 from 38), the nvidia-smi line, and last {"ok": true,
 "device": {...}}. Exits non-zero without a result when CUDA is unavailable.
 """
 
@@ -1627,7 +1655,7 @@ calls = {
     "component_extents": lambda: ext.component_extents(
         torch.zeros((1, 65535, 1), dtype=torch.bool, device=d), 8),
     "nms": lambda: ext.nms(torch.zeros((1, 20000, 4), device=d),
-                           torch.zeros((1, 20000), device=d), 4, 0.5),
+                           torch.zeros((1, 19999), device=d), 4, 0.5),
     "warp_bilinear": lambda: ext.warp_bilinear(im, z[:, :4], z),
     "label_components": lambda: ext.label_components(torch.zeros((8, 8), device=d), 8),
 }
@@ -1641,8 +1669,8 @@ except Exception as e:
 
 def binding_errors():
     """[20] each of the six bindings gets one malformed input that only the
-    binding's own checks refuse (the SOR schedule, a 65535-row mask, 20000
-    boxes, mismatched shapes), in a child process of its own: the child
+    binding's own checks refuse (the SOR schedule, a 65535-row mask,
+    mismatched shapes), in a child process of its own: the child
     must print the Python exception and exit 0; one ended by a signal fails
     the phase."""
     from pathlib import Path
@@ -2733,6 +2761,519 @@ def v2_small_against_cpu(dev, work):
     log(f"  render_iuv_boxes: {n} frames, equal from both roots")
 
 
+# -- the parallel slice: native loader, K3 past 8192, remat, data parallelism ------
+
+
+def cv2_jpeg_encoder():
+    """(whether cv2 imports and encodes a JPEG, what it said)."""
+    try:
+        import cv2
+        import numpy as np
+
+        ok, buf = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))
+        return bool(ok) and len(buf) > 0, f"cv2 {cv2.__version__}"
+    except Exception as e:  # noqa: BLE001 - reported, not hidden
+        return False, f"{type(e).__name__}: {e}"
+
+
+def native_loader_full_width(dev, root: str):
+    """[37] the native clip loader on this machine: whether jpeglib.h is
+    found, whether cv2 encodes JPEG, whether the library builds (a build
+    that fails while jpeglib.h is there fails the run). Then, where cv2
+    writes JPEG: a crop-folder fixture at full width (16 CropHTAH videos of
+    20 frames, crops of 184-200 px, 9 files a frame), a Trainer on it with
+    DATA.BACKEND auto (which must take the native loader where it builds,
+    and cv2 where it does not, as the JAX package's would), the decode of
+    one batch of 16 timed twice, and 3 train steps on it (bf16); where the
+    loader does not build, why, in plain words. Returns a dict of what was
+    found and measured."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.data.dataset import ChalearnVideoDataset, train_batches
+    from video_classification_tpu_torch.data.fixture import generate_fixture
+    from video_classification_tpu_torch.engine import Trainer
+    from video_classification_tpu_torch.native import loader
+    from video_classification_tpu_torch.utils.labels import write_labels
+
+    cxx = loader.compiler()
+    header = loader.jpeg_header_found(cxx)
+    encoder, cv2_said = cv2_jpeg_encoder()
+    t0 = time.perf_counter()
+    built = loader.native_available()
+    build_s = time.perf_counter() - t0
+    found = {"compiler": cxx, "jpeglib_h": header, "cv2_jpeg": encoder, "built": built,
+             "build_s": round(build_s, 3)}
+    log(f"  C++ compiler {cxx}; jpeglib.h found: {header}; cv2 JPEG encoder: {encoder} "
+        f"({cv2_said}); native loader built: {built} ({build_s:.2f} s)"
+        + ("" if built else f": {loader.build_error()}"))
+    if header and not built:
+        raise AssertionError(f"jpeglib.h is here but the loader does not build: "
+                             f"{loader.build_error()}")
+    cfg = htah_cfg(root)
+    cfg.CHALEARN.BATCH_SIZE = 16
+    cfg.DATA.BACKEND = "auto"
+    want = "native" if built else "cv2"
+    if not built:
+        log("  the native loader cannot be built on this machine (no libjpeg header); "
+            "DATA.BACKEND auto reads with cv2 here, as the JAX package's would")
+    if not encoder:
+        log("  cv2 cannot write a JPEG: no JPEG fixture is written on this machine")
+        return found
+    t0 = time.perf_counter()
+    generate_fixture(cfg, num_videos_per_set=16, num_classes=249, frames_per_video=20,
+                     crops=("CropHTAH",), sets=("train",), base_size=192)
+    write_labels(cfg, "test", [])
+    write_s = time.perf_counter() - t0
+    trainer = Trainer(cfg, device=dev)
+    ds = trainer.train_dataset
+    if ds.decoder != want:
+        raise AssertionError(f"DATA.BACKEND auto took {ds.decoder}, not {want}")
+    decode = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = next(train_batches(ds, 16, seed=0))
+        decode.append(time.perf_counter() - t0)
+    x = torch.from_numpy(batch["x"]).to(dev)
+    labels = torch.from_numpy(batch["label"]).to(dev)
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(x, labels)["loss"])
+        steps.append(time.perf_counter() - t0)
+        if not np.isfinite(loss):
+            raise AssertionError(f"[37] train step loss {loss}")
+    cv2_cfg = cfg.clone()
+    cv2_cfg.DATA.BACKEND = "cv2"
+    if built:  # the other decoder on one clip, for scale
+        a = ChalearnVideoDataset(cv2_cfg, "train").get_train_clip(0, random.Random(0))["x"]
+        b = ds.get_train_clip(0, random.Random(0))["x"]
+        found["native_vs_cv2_mean_abs"] = float(np.abs(a.astype(int) - b.astype(int)).mean())
+    found.update({"auto": ds.decoder, "fixture_write_s": round(write_s, 3),
+                  "decode_batch16_s": [round(d, 4) for d in decode],
+                  "step_batch16_s": [round(s, 4) for s in steps], "loss": loss})
+    log(f"  auto took {ds.decoder}; fixture of 16 x 20 frames x 9 JPEGs written "
+        f"by cv2 in {write_s:.2f} s; decode of a batch of 16 clips "
+        f"{[round(d, 3) for d in decode]} s against a train step {[round(s, 4) for s in steps]} "
+        f"s (bf16, 249 classes, 192 px, CLIP_LEN 20); {json.dumps(found)}")
+    del trainer, x
+    torch.cuda.empty_cache()
+    return found
+
+
+def nms_past_8192(dev):
+    """[38] K3's device-memory route: N = 10000 and 20000 dense boxes, 4
+    frames, thresholds 0.7 and 0.5, 1000 slots, exact against nms_reference,
+    each timed beside its bound (the K3 row's form)."""
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.detect.nms import route
+    from video_classification_tpu_torch.utils.cuda import build
+
+    rows = []
+    for n in (10000, 20000):
+        if route(n) != "device" or build().nms_route(n) != "device":
+            raise AssertionError(f"K3 route of N = {n}: {route(n)}, {build().nms_route(n)}")
+        frames = [nms_boxes(n, n + f, 1200.0) for f in range(4)]
+        boxes = torch.from_numpy(np.stack([b for b, _ in frames])).to(dev)
+        scores = torch.from_numpy(np.stack([s for _, s in frames])).to(dev)
+        for thr in (0.7, 0.5):
+            rows.append(nms_row("past 8192 (device-memory route)", boxes, scores, 1000, thr))
+    if build().nms_route(8192) != "shared":
+        raise AssertionError("K3 at N = 8192 left the shared-memory route")
+    return rows
+
+
+def remat_full_width(dev, root: str):
+    """[39] slowfast-HTAH at full width (bf16, synthetic clips) with
+    CUDA.REMAT off, "" and "conv": batch 16, 2 warm-up and 5 timed train
+    steps each (ms per step, peak memory), the running statistics after the
+    first step equal to those without remat (same weights, batch and
+    offsets; cuDNN deterministic for that step); then "conv" at batches 32,
+    48, 64 and 96
+    until one raises CUDA out-of-memory (that rung is the measured limit;
+    any other exception fails)."""
+    import torch
+
+    from video_classification_tpu_torch.engine import Trainer
+    from video_classification_tpu_torch.profile_train import train_cfg
+
+    def trainer_for(policy, batch):
+        cfg = train_cfg(root, batch, synthetic_videos=batch)
+        cfg.CUDA.REMAT = policy is not None
+        cfg.CUDA.REMAT_POLICY = policy or ""
+        return Trainer(cfg, device=dev)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(0, 256, (16, 20, 192, 192, 21), generator=g, device=dev,
+                      dtype=torch.uint8)
+    labels = torch.randint(0, 249, (16,), generator=g, device=dev)
+    out, stats = {}, {}
+    for policy in (None, "", "conv"):
+        trainer = trainer_for(policy, 16)
+        offsets = trainer.mm.crop_offsets(x, trainer.generator)
+        torch.backends.cudnn.deterministic = True  # the compared step only
+        try:
+            trainer.train_step(x, labels, offsets=offsets)
+            stats[policy] = {k: v.clone() for k, v in trainer.model.state_dict().items()
+                             if "running_" in k}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        trainer.train_step(x, labels, offsets=offsets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            loss = trainer.train_step(x, labels, offsets=offsets)["loss"]
+        float(loss)
+        out[str(policy)] = {"ms": round((time.perf_counter() - t0) / 5 * 1e3, 3),
+                            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+        del trainer
+        torch.cuda.empty_cache()
+    for policy in ("", "conv"):
+        diff = max(float((stats[policy][k] - v).abs().max()) for k, v in stats[None].items())
+        same = all(torch.equal(stats[policy][k], v) for k, v in stats[None].items())
+        out[str(policy)]["stats_max_abs_diff"] = diff
+        log(f"  remat {policy!r}: running statistics after one step "
+            f"{'bit-equal to' if same else f'differ by {diff:.3e} from'} no remat")
+        if not same:
+            raise AssertionError(f"remat {policy!r} changed the running statistics")
+    log(f"  batch 16, bf16: {json.dumps(out)}")
+    ladder = []
+    del x
+    torch.cuda.empty_cache()
+    for batch in (32, 48, 64, 96):
+        trainer = xb = None
+        try:
+            trainer = trainer_for("conv", batch)
+            xb = torch.randint(0, 256, (batch, 20, 192, 192, 21), generator=g, device=dev,
+                               dtype=torch.uint8)
+            lb = torch.randint(0, 249, (batch,), generator=g, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_step(xb, lb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(trainer.train_step(xb, lb)["loss"])
+            rung = {"batch": batch, "ms": round((time.perf_counter() - t0) * 1e3, 3),
+                    "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+            log(f"  remat 'conv' batch {batch}: {json.dumps(rung)}")
+            ladder.append(rung)
+        except torch.cuda.OutOfMemoryError:
+            log(f"  remat 'conv' batch {batch}: CUDA out of memory: the measured limit")
+            ladder.append({"batch": batch, "oom": True})
+            break
+        finally:
+            del trainer, xb
+            torch.cuda.empty_cache()
+    out["ladder"] = ladder
+    return out
+
+
+WORKER_TIMEOUT_S = 600
+
+
+def run_workers(scenario: str, out_dir: str, n: int):
+    """``python3 chip_smoke.py --worker scenario out_dir`` as ``n`` ranks
+    through ``parallel.multihost.launch_ranks`` (the torchrun environment,
+    a free local port, every rank killed if they outlast the timeout).
+    Returns their stdouts; raises with a failed rank's error output."""
+    from pathlib import Path
+
+    from video_classification_tpu_torch.parallel.multihost import launch_ranks
+
+    here = Path(__file__).resolve()
+    outs = launch_ranks(lambda r: [str(here), "--worker", scenario, out_dir], n,
+                        cwd=here.parent, timeout_s=WORKER_TIMEOUT_S)
+    for r, (rc, out, err) in enumerate(outs):
+        for line in out.splitlines():
+            log(f"    rank {r}: {line}")
+        if rc != 0:
+            raise AssertionError(f"{scenario} rank {r} exited {rc}: {err.strip()[-3000:]}")
+    return [o[1] for o in outs]
+
+
+def dp_cfg(root: str, batch: int = 16):
+    """slowfast-HTAH at full width in float32 on 32 synthetic train and
+    test videos of 20 frames (two steps of 16 an epoch; one eval clip a
+    video)."""
+    from video_classification_tpu_torch.profile_train import train_cfg
+
+    cfg = train_cfg(root, batch, synthetic_videos=32, debug=False)
+    cfg.DATA.SYNTHETIC_SEQ_LEN = 20
+    cfg.CUDA.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.MAX_EPOCH = 1
+    return cfg
+
+
+def dp_run(cfg, dev):
+    """One epoch (its steps timed) and the eval on the trained weights, head
+    dropout 0 (as [19]; the global-batch dropout of ranks is held on the
+    CPU); returns numpy/tensor results for comparison."""
+    import torch
+
+    from video_classification_tpu_torch.engine import Trainer
+
+    trainer = Trainer(cfg, device=dev)
+    no_dropout(trainer.model)
+    step, losses, times, grads = trainer.train_step, [], [], {}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(*args, **kwargs)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if not grads:  # the first step's, from the same parameters everywhere
+            grads.update({k: p.grad.detach().cpu() for k, p in
+                          trainer.model.named_parameters()})
+        return m
+
+    trainer.train_step = timed
+    trainer.train_epoch(0)
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    ev = trainer.run_eval()
+    return {"losses": losses, "step_s": times, "state": state, "grads": grads,
+            "eval": {k: ev[k] for k in ("ps", "t", "acc", "sv")},
+            "n_processes": trainer.n_processes}
+
+
+def first_step_spread(cfg, dev):
+    """float32's resolution of the first step's gradient on the card: the
+    one-process gradient of the first global batch with its rows (and their
+    crop offsets) in order and permuted, from fresh trainers (dropout 0);
+    returns (in order, permuted) as {name: float64 numpy}."""
+    import torch
+
+    from video_classification_tpu_torch.data.dataset import train_batches
+    from video_classification_tpu_torch.engine import Trainer
+
+    out = []
+    for perm in (None, torch.tensor([(i * 5 + 3) % 16 for i in range(16)])):
+        trainer = Trainer(cfg, device=dev)
+        no_dropout(trainer.model)
+        b = next(train_batches(trainer.train_dataset, 16, seed=int(cfg.CUDA.SEED)))
+        x = torch.from_numpy(b["x"]).to(dev)
+        labels = torch.from_numpy(b["label"]).to(dev)
+        offsets = trainer.mm.crop_offsets(x, trainer.generator)
+        if perm is not None:
+            x, labels, offsets = x[perm.to(dev)], labels[perm.to(dev)], offsets[perm.to(dev)]
+        trainer.train_step(x, labels, offsets=offsets)
+        out.append({k: p.grad.double().cpu().numpy()
+                    for k, p in trainer.model.named_parameters()})
+        del trainer, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(scenario: str, out_dir: str) -> int:
+    """One rank of [40] ('dp', 'nccl') or [41] ('temporal'), started by
+    run_workers under the torchrun environment."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from video_classification_tpu_torch.parallel.multihost import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not initialize_distributed(timeout_s=WORKER_TIMEOUT_S):
+        raise SystemExit("worker: no torch.distributed environment")
+    rank = int(os.environ["RANK"])
+    out = Path(out_dir)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if scenario in ("dp", "nccl"):
+        cfg = dp_cfg(str(out / "ckpt"), 16 if scenario == "dp" else 8)
+        if scenario == "nccl":
+            cfg.DATA.SYNTHETIC_NUM_VIDEOS = 8
+        result = dp_run(cfg, dev)
+        result["backend"] = torch.distributed.get_backend()
+        print(f"{scenario}: loss {result['losses']}, step s {result['step_s']}", flush=True)
+    elif scenario == "temporal":
+        from video_classification_tpu_torch.parallel import conv3d_temporal_sharded
+        from video_classification_tpu_torch.parallel.temporal import gather_t, shard_t
+
+        x, w = temporal_full_width()
+        x, w = x.to(dev), w.to(dev)
+        y = conv3d_temporal_sharded(shard_t(x), w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            y = conv3d_temporal_sharded(shard_t(x), w)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        full = gather_t(y)
+        want = F.conv3d(x, w, padding=(1, 0, 0))
+        err = float((full - want).abs().max())
+        scale = float(want.abs().max())
+        result = {"max_abs_err": err, "scale": scale, "ms": ms,
+                  "local_shape": list(y.shape), "equal": bool(torch.equal(full, want))}
+        print(f"temporal: {json.dumps(result)}", flush=True)
+        if not np.isfinite(err) or err > 1e-4 * max(scale, 1.0):
+            raise AssertionError(f"sharded temporal conv differs by {err:.3e} (scale {scale:.3e})")
+    else:
+        raise SystemExit(f"unknown worker scenario {scenario!r}")
+    torch.save(result, out / f"{scenario}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def temporal_full_width():
+    """A SlowFast-R50 slow-pathway res4 conv_a at full width: (16, 640, 20,
+    24, 24) input (CropHTAH 192 px at 1/8, after the fusion's 128 extra
+    channels), (256, 640, 3, 1, 1) weights, float32 from numpy seeds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(41)
+    x = torch.from_numpy(rng.standard_normal((16, 640, 20, 24, 24)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((256, 640, 3, 1, 1))
+                          / np.sqrt(640 * 3)).astype(np.float32))
+    return x, w
+
+
+def data_parallel_full_width(dev, root: str):
+    """[40] two gloo ranks sharing the card train slowfast-HTAH at full width
+    (float32, TF32 off, global batch 16: 8 rows a rank) for one epoch of two
+    steps, then evaluate (sharded decode); the ranks are bit-equal to each
+    other and match the one-process run (first-step loss within 1e-5,
+    state and gradients at the train bars, eval clip order, labels and
+    accuracy exact, scores within 5e-3); one NCCL rank (world size 1)
+    takes one epoch of one step. Head dropout 0. ms per step of each."""
+    import numpy as np
+    import torch
+    from pathlib import Path
+
+    work = Path(tempfile.mkdtemp(prefix="dp_", dir=root))
+    torch.cuda.empty_cache()
+    run_workers("dp", str(work), 2)
+    ranks = [torch.load(work / f"dp_rank{r}.pt", weights_only=False) for r in range(2)]
+    a, b = ranks
+    if a["backend"] != "gloo" or a["n_processes"] != 2:
+        raise AssertionError(f"[40] ranks on {a['backend']}, world {a['n_processes']}")
+    unequal = [k for k in a["state"] if not torch.equal(a["state"][k], b["state"][k])]
+    if unequal or a["losses"] != b["losses"]:
+        raise AssertionError(f"[40] the ranks differ: {unequal[:5]}, {a['losses']} {b['losses']}")
+    single = dp_run(dp_cfg(str(work / "single")), dev)
+    torch.cuda.empty_cache()
+    loss_gap = abs(a["losses"][0] - single["losses"][0]) / abs(single["losses"][0])
+    worst_state = max(float(((a["state"][k].float() - v.float()).abs()
+                             / (5e-3 + 5e-3 * v.float().abs())).max())
+                      for k, v in single["state"].items() if v.is_floating_point())
+
+    def rel(x, y):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
+
+    keys = sorted(single["grads"])
+    got = {k: a["grads"][k].double().numpy() for k in keys}
+    want = {k: single["grads"][k].double().numpy() for k in keys}
+
+    def flat(d):
+        return np.concatenate([d[k].ravel() for k in keys])
+
+    s0, s1 = first_step_spread(dp_cfg(str(work / "spread")), dev)
+    rerun = rel(flat(s0), flat(want))  # the same step again: cuDNN's run-to-run gap
+    bars = (max(1e-3, 2 * rel(flat(s1), flat(s0))),
+            max(1e-3, 2 * max(rel(s1[k], s0[k]) for k in keys)))
+    whole = rel(flat(got), flat(want))
+    worst = max(rel(got[k], want[k]) for k in keys)
+    cos = min(float(np.dot(got[k].ravel(), want[k].ravel())
+                    / max(np.linalg.norm(got[k]) * np.linalg.norm(want[k]), 1e-30))
+              for k in keys)
+    ea, es = a["eval"], single["eval"]
+    score_err = float(np.abs(ea["ps"] - es["ps"]).max())
+    log(f"  two ranks (gloo, one card): losses {a['losses']}, step s per rank "
+        f"{[round(s, 4) for s in a['step_s']]}, {[round(s, 4) for s in b['step_s']]}; one "
+        f"process: losses {single['losses']}, step s {[round(s, 4) for s in single['step_s']]}")
+    log(f"  the one-process first step run again: its gradients {rerun:.2e} from the first "
+        f"run's; with the rows permuted {rel(flat(s1), flat(s0)):.2e}")
+    log(f"  ranks vs one process: first loss {loss_gap:.2e} relative; state after two steps "
+        f"at {worst_state:.3f} of the 5e-3 bar; first step's gradients {whole:.2e} over all "
+        f"(bar {bars[0]:.2e}), worst tensor {worst:.2e} (bar {bars[1]:.2e}), min cosine "
+        f"{cos:.6f}; eval sv {ea['sv'] == es['sv']}, labels {np.array_equal(ea['t'], es['t'])}, "
+        f"acc {ea['acc']} vs {es['acc']}, max|dscore| {score_err:.2e}")
+    # The gradient bars are [25]'s: twice the card's own float32 spread (the
+    # one-process gradient with the batch rows permuted), at least 1e-3.
+    if (loss_gap > 1e-5 or worst_state > 1.0 or whole > bars[0] or worst > bars[1]
+            or cos < 0.999 or ea["sv"] != es["sv"] or not np.array_equal(ea["t"], es["t"])
+            or ea["acc"] != es["acc"] or score_err > SCORE_ATOL):
+        raise AssertionError("[40] the two ranks do not match the one-process run")
+    run_workers("nccl", str(work), 1)
+    n = torch.load(work / "nccl_rank0.pt", weights_only=False)
+    if n["backend"] != "nccl" or not np.isfinite(n["losses"]).all():
+        raise AssertionError(f"[40] the NCCL rank: {n['backend']}, {n['losses']}")
+    log(f"  one NCCL rank (world size 1): losses {n['losses']}, step s "
+        f"{[round(s, 4) for s in n['step_s']]} at batch 8")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"gloo_step_s": a["step_s"], "single_step_s": single["step_s"],
+            "nccl_step_s": n["step_s"], "first_loss_gap": loss_gap,
+            "grad_gap": [whole, worst, cos], "grad_bars": list(bars), "rerun_gap": rerun,
+            "score_err": score_err}
+
+
+def train_parallel_full_width(root: str):
+    """[41] ``python -m video_classification_tpu_torch train-parallel
+    slowfast-HTAH slowfast-Torso`` at full width (bf16, batch 16, 16
+    synthetic videos: one epoch of one step and its eval; DEBUG writes no
+    checkpoint, so a real epoch of one batch instead), both
+    streams in threads on the one card, against ``train`` of each stream in
+    sequence: the wall times, and each stream's checkpoints within the
+    train bars of the sequential run's; then conv3d_temporal_sharded over
+    two gloo ranks at a res4 conv_a's full-width shape against the
+    unsharded convolution (TF32 off)."""
+    import torch
+    from pathlib import Path
+
+    work = Path(tempfile.mkdtemp(prefix="streams_", dir=root))
+    opts = ["--opts", "CHALEARN.BATCH_SIZE", "16", "MODEL.MAX_EPOCH", "1",
+            "DATA.SYNTHETIC_NUM_VIDEOS", "16", "DATA.SYNTHETIC_SEQ_LEN", "20"]
+    names = ["slowfast-HTAH", "slowfast-Torso"]
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "video_classification_tpu_torch", *argv],
+                             cwd=Path(__file__).resolve().parent, capture_output=True,
+                             text=True, timeout=WORKER_TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"{argv[:3]} exited {out.returncode}: {out.stderr[-3000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    said, par_s = cli("train-parallel", *names, "--root", str(work / "par"), *opts)
+    seq_s = 0.0
+    for name in names:  # a root each: no stream warm-starts from another's checkpoint
+        seq_s += cli("train", name, "--root", str(work / "seq" / name), *opts)[1]
+    log(f"  train-parallel {' '.join(names)}: {par_s:.2f} s wall; sequential train of each: "
+        f"{seq_s:.2f} s in all; " + "; ".join(
+            line for line in said.splitlines() if line.startswith("stream ")))
+    if "using HTAH checkpoint" in said:
+        raise AssertionError("[41] a train-parallel stream warm-started from another's save")
+    worst = {}
+    for name in names:  # the final save of each run (epoch 0)
+        par = sorted((work / "par" / "logs" / "checkpoints" / name).glob("*_e0.ckpt"))
+        seq = sorted((work / "seq" / name / "logs" / "checkpoints" / name).glob("*_e0.ckpt"))
+        if len(par) != 1 or len(seq) != 1:
+            raise AssertionError(f"[41] {name}: final checkpoints {par} vs {seq}")
+        a, b = torch.load(par[0]), torch.load(seq[0])
+        worst[name] = max(float(((a[k] - v).abs() / (5e-3 + 5e-3 * v.abs())).max())
+                          for k, v in b.items() if v.is_floating_point())
+    log(f"  each stream's final checkpoint against its sequential run, as a share of the "
+        f"atol = rtol = 5e-3 bar: {json.dumps(worst)}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError("[41] train-parallel's checkpoints differ from the sequential runs")
+    shutil.rmtree(work, ignore_errors=True)
+    work = Path(tempfile.mkdtemp(prefix="temporal_", dir=root))
+    run_workers("temporal", str(work), 2)
+    t = [torch.load(work / f"temporal_rank{r}.pt") for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    return {"parallel_s": par_s, "sequential_s": seq_s, "ckpt_bar_share": worst,
+            "temporal": t[0]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2907,6 +3448,27 @@ def main() -> int:
         shutil.rmtree(v2_root, ignore_errors=True)
     v2_videos = len(OFFLINE_SETS)
 
+    del detector
+    torch.cuda.empty_cache()
+    par_root = tempfile.mkdtemp(prefix="parallel_", dir=Path(root).parent)
+    try:
+        log("[37] the native clip loader: codecs on this machine; DATA.BACKEND auto at "
+            "full width")
+        native = native_loader_full_width(dev, str(Path(par_root) / "native"))
+        log("[38] K3 past N = 8192 (the device-memory route) vs plain")
+        k3_big = nms_past_8192(dev)
+        log("[39] remat at full width (bf16): none, '' and 'conv' at batch 16; the 'conv' "
+            "ladder")
+        remat = remat_full_width(dev, str(Path(par_root) / "remat"))
+        log("[40] data parallel at full width: two gloo ranks on the card vs one process; "
+            "one NCCL rank")
+        dp = data_parallel_full_width(dev, par_root)
+        log("[41] train-parallel slowfast-HTAH slowfast-Torso at full width; the temporal "
+            "halo exchange")
+        streams = train_parallel_full_width(par_root)
+    finally:
+        shutil.rmtree(par_root, ignore_errors=True)
+
     def entry(name, source, replaces, launches, k, library_ms=None):
         row = {"name": name, "route": "cuda",
                "source": f"video_classification_tpu_torch/csrc/{source}",
@@ -2924,6 +3486,8 @@ def main() -> int:
             row["offline"] = offline[name]
         if name == "component_extents":
             row["v2"] = v2_k2
+        if name == "nms":
+            row["past_8192"] = k3_big
         return row
 
     kernels = [
@@ -2957,7 +3521,9 @@ def main() -> int:
         + f"; RAFT full width {json.dumps(raft)}, card vs cpu bar {raft_bar}; v2-convert "
         f"seconds per video {json.dumps(v2_s)}; V2Trainer {v2_step_s * 1e3:.3f} ms per step "
         f"at batch {v2_batch} ({v2_batch / v2_step_s:.3f} clips/s, "
-        f"{v2_peak / 2**30:.3f} GiB)")
+        f"{v2_peak / 2**30:.3f} GiB); native loader {json.dumps(native)}; remat "
+        f"{json.dumps(remat)}; data parallel {json.dumps(dp)}; train-parallel and temporal "
+        f"{json.dumps(streams)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2967,4 +3533,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        sys.exit(worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -14,8 +14,10 @@
     frame; ``v2-convert`` refuses a DensePose provider without
     ``--densepose-pkl`` and RAFT without ``--raft-checkpoint``;
   * without ``VCT_PLATFORM=cpu`` and without a card, a command raises;
-  * each subcommand the port does not run yet (``train-parallel``,
-    ``bench``) exits with status 2 and says so.
+  * ``train-parallel`` trains two streams at once on the CPU (one thread
+    each), each saving its checkpoint, and prints each stream's accuracy;
+  * ``bench``, which the port does not run, exits with status 2 and names
+    the ``benchmark`` PR that writes BENCHMARK.json.
 """
 
 import contextlib
@@ -124,10 +126,22 @@ def test_a_command_needs_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch
         _run(["eval", "slowfast-LHand", "--root", str(tmp_path)] + OPTS)
 
 
-@pytest.mark.parametrize("argv", [["train-parallel", "slowfast-HTAH"], ["bench"]])
+@pytest.mark.parametrize("argv", [["bench"]])
 def test_unported_subcommands_exit_nonzero(argv):
     rc, out, err = _run(argv)
-    assert rc == 2 and "not ported yet" in err and "ROADMAP" in err and not out
+    assert rc == 2 and "not ported" in err and not out
+    assert "`benchmark` PR" in err and "BENCHMARK.json" in err
+    assert cli.NOT_PORTED.keys() == {"bench"}
+
+
+def test_train_parallel_trains_each_stream(tmp_path, monkeypatch):
+    monkeypatch.setenv("VCT_PLATFORM", "cpu")
+    names = ["slowfast-LHand", "slowfast-Torso"]
+    rc, out, _ = _run(["train-parallel", *names, "--root", str(tmp_path)] + OPTS)
+    assert rc == 0
+    for name in names:
+        assert f"stream {name}: done" in out and f"{name}: best acc" in out
+        assert list((tmp_path / "logs" / "checkpoints" / name).glob("*.ckpt")), name
 
 
 V2_OPTS = ["--opts", "CHALEARN.NUM_CLASS", "2", "CHALEARN.SAMPLE_CLASS", "2",

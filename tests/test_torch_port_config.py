@@ -72,9 +72,11 @@ def test_model_cfg_matches_jax(name):
     ref = _flat(jax_load_model_cfg(name))
     shared = {k for k in ref if not k.startswith("TPU.")}
     assert set(port) == shared | {"CUDA.COMPUTE_DTYPE", "CUDA.PARAM_DTYPE", "CUDA.SEED",
-                                  "CUDA.PREFETCH_DEPTH"}
+                                  "CUDA.PREFETCH_DEPTH", "CUDA.REMAT", "CUDA.REMAT_POLICY"}
     for k in shared:
         assert port[k] == ref[k] and type(port[k]) is type(ref[k]), k
+    for k in ("REMAT", "REMAT_POLICY"):  # the JAX TPU.* keys' defaults
+        assert port[f"CUDA.{k}"] == ref[f"TPU.{k}"], k
 
 
 def test_merge_from_list_coerces_literals():

@@ -12,7 +12,8 @@
   * ``prefetch_to_device`` keeps the order at every depth, hands a
     producer's exception to the consumer after the batches before it, and
     stops its thread when the consumer stops early;
-  * ``DATA.BACKEND native`` raises.
+  * ``DATA.BACKEND native`` raises where the native loader cannot be
+    built (tests/test_torch_port_native_loader.py holds the loader itself).
 """
 
 import random
@@ -177,8 +178,14 @@ def test_prefetch_stops_its_thread_when_the_consumer_stops():
     assert not alive
 
 
-def test_native_backend_is_not_ported():
-    _, cfg = _cfgs(synthetic=0)
+def test_native_backend_is_not_ported(monkeypatch, tmp_path):
+    """Where the loader cannot be built, 'native' raises (it once raised
+    always, before the loader was ported)."""
+    from video_classification_tpu_torch.native import loader
+
+    monkeypatch.setattr(loader, "get_lib", lambda: None)
+    _, cfg = _cfgs(root=tmp_path, synthetic=0)
+    write_labels(cfg, "train", [])
     cfg.DATA.BACKEND = "native"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="native loader is unavailable"):
         pds.ChalearnVideoDataset(cfg, "train")

@@ -2,7 +2,8 @@
 
 Run in subprocesses, because tests/conftest.py imports jax:
 importing every module of ``video_classification_tpu_torch`` (the train,
-ensemble, offline-chain and v2 slices' among them) pulls in neither jax,
+ensemble, offline-chain, v2 and parallel slices' among them, with
+``native/`` and ``parallel/``) pulls in neither jax,
 flax, optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
 --help`` lists the JAX CLI's subcommands; ``chip_smoke.py`` refuses to run
 without CUDA, and outside a checkout.
@@ -33,6 +34,8 @@ OFFLINE_SLICE = ("data.fixture", "detect.provider", "pipeline.frame_io",
                  "utils.chapath", "utils.chunked")
 V2_SLICE = ("models.raft", "models.raft_convert", "profile_v2", "v2", "v2.convert",
             "v2.dataset", "v2.part_compose", "v2.trainer", "v2.video_io")
+PARALLEL_SLICE = ("engine.parallel_streams", "native", "native.loader", "parallel",
+                  "parallel.mesh", "parallel.multihost", "parallel.temporal")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -50,7 +53,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE + V2_SLICE!r}\n"
+        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE + V2_SLICE + PARALLEL_SLICE!r}\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")

@@ -244,8 +244,11 @@ def test_scan_stops_at_the_first_invalid_score():
 
 
 def test_batches_past_the_shared_memory_raise_before_launching():
-    """The wrapper's shape check runs first on any device; the binding
-    refuses N whose boxes and keys exceed a block (N > 8192)."""
+    """The wrapper's shape check runs first on any device. N whose boxes
+    and keys exceed a block (N > 8192) no longer raise: the binding takes
+    the device-memory route there (test_torch_port_nms_large.py)."""
     with pytest.raises(ValueError):
         nms(torch.zeros((1, 5, 3)), torch.zeros((1, 5)), 3)
-    assert "nms_smem_bytes(N) <= kMaxSmem" in (cuda.CSRC / "bindings.cpp").read_text()
+    bindings = (cuda.CSRC / "bindings.cpp").read_text()
+    assert "nms_smem_bytes(N) <= kMaxSmem" in bindings
+    assert "nms_scratch_bytes(B, N, max_out, kMaxSmem)" in bindings

@@ -5,6 +5,7 @@ this package runs:
 
     python -m video_classification_tpu_torch train slowfast-Torso [...] [--warmstart F]
     python -m video_classification_tpu_torch train-parts
+    python -m video_classification_tpu_torch train-parallel slowfast-HTAH slowfast-Torso [--devices-per-stream N]
     python -m video_classification_tpu_torch eval slowfast-HTAH
     python -m video_classification_tpu_torch preprocess --root /data/ChaLearn [--provider synthetic]
     python -m video_classification_tpu_torch sparse-dump
@@ -22,9 +23,20 @@ versions), the variable the JAX package's CLI reads. ``preprocess``,
 ``v2-convert``, ``v2-train`` and ``tools render-iuv`` read and write JPEG
 and AVI files through ``cv2`` (``Cv2FrameIO``), as the JAX CLI does; their
 DensePose provider needs ``--densepose-pkl``, and ``v2-convert
---flow-method raft`` needs ``--raft-checkpoint``. ``train-parallel`` and
-``bench`` are not ported yet: they exit with status 2, naming the ROADMAP
-item that ports them.
+--flow-method raft`` needs ``--raft-checkpoint``.
+
+``train``, ``train-parts``, ``train-parallel`` and ``eval`` first call
+``parallel.multihost.initialize_distributed``: under ``torchrun`` (or its
+environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) each
+process is one data-parallel rank and prints its rank line; without it they
+run alone. ``train-parallel`` trains its streams at once, one thread per
+device group (``--devices-per-stream``; a group of several cards trains its
+stream data-parallel), and refuses to run as one rank of a world.
+
+``bench`` is not ported: the repository's benchmark (the root ``bench.py``
+and ``benchmarks/``) is earlier work, and the port's own measurement waits
+for the ``benchmark`` PR that writes ``BENCHMARK.json``. It exits with
+status 2 and says so.
 """
 
 from __future__ import annotations
@@ -34,10 +46,10 @@ import os
 import sys
 from pathlib import Path
 
-# Subcommand (or tool) -> the ROADMAP queue-1 item that ports it.
+# Subcommand (or tool) -> why it is not ported, and what ports it.
 NOT_PORTED = {
-    "train-parallel": "11 (parallelism)",
-    "bench": "the first benchmark cell (ROADMAP, Open items)",
+    "bench": "the port's benchmark comes with the `benchmark` PR that writes "
+             "BENCHMARK.json (ROADMAP queue 1, item 1)",
 }
 
 
@@ -131,8 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_opts(p)
 
     p = sub.add_parser("train-parallel",
-                       help="train streams concurrently (not ported yet)")
-    p.add_argument("models", nargs="+")
+                       help="train streams concurrently, one per device group")
+    p.add_argument("models", nargs="+", help="config names, e.g. the 6 streams")
     p.add_argument("--devices-per-stream", type=int, default=1)
     _add_opts(p)
 
@@ -177,7 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", type=int, default=5)
     _add_opts(p)
 
-    sub.add_parser("bench", help="the throughput benchmark (not ported yet)")
+    sub.add_parser("bench", help="the throughput benchmark (not ported)")
 
     p = sub.add_parser("tools")
     tool_sub = p.add_subparsers(dest="tool", required=True)
@@ -195,9 +207,19 @@ def main(argv=None) -> int:
     unported = args.tool if args.cmd == "tools" else args.cmd
     if unported in NOT_PORTED:
         print(f"{' '.join(filter(None, (args.cmd, getattr(args, 'tool', None))))}: not "
-              f"ported yet; ROADMAP queue 1, item {NOT_PORTED[unported]}", file=sys.stderr)
+              f"ported: {NOT_PORTED[unported]}", file=sys.stderr)
         return 2
     device = _device()
+    if args.cmd in ("train", "train-parts", "train-parallel", "eval"):
+        # Data parallelism (parallel/multihost): a no-op without the
+        # torchrun environment; with it, this process is one rank.
+        from .parallel.multihost import initialize_distributed, process_count
+
+        initialize_distributed(device)
+        if args.cmd == "train-parallel" and process_count() > 1:
+            print("train-parallel starts its own ranks per device group; run it once, "
+                  "not as one rank of a world", file=sys.stderr)
+            return 2
 
     if args.cmd == "train":
         from .engine import Trainer
@@ -213,11 +235,19 @@ def main(argv=None) -> int:
                 with torch.profiler.profile() as prof:
                     trainer.train_epoch(0)
                 prof.export_chrome_trace(str(out / "trace.json"))
-            trainer.train()
+            print(f"{name}: best acc {trainer.train()!r}")
     elif args.cmd == "train-parts":
         from .engine import train_unimportant_parts
 
         train_unimportant_parts(cfg_base=_cfg_for("slowfast-HTAH", args), device=device)
+    elif args.cmd == "train-parallel":
+        from .engine import train_streams_parallel
+
+        results = train_streams_parallel(args.models, cfg_overrides=_common_opts(args),
+                                         devices_per_stream=args.devices_per_stream,
+                                         device=device)
+        for name, acc in results.items():
+            print(f"{name}: best acc {acc:.4f}")
     elif args.cmd == "preprocess":
         _run_preprocess(args, device)
     elif args.cmd == "eval":

@@ -64,6 +64,10 @@ _C.CUDA.COMPUTE_DTYPE = "bfloat16"  # Activation dtype of the network.
 _C.CUDA.PARAM_DTYPE = "float32"     # Master weights.
 _C.CUDA.SEED = 0                    # Seed of weight init, sampling, crops, dropout.
 _C.CUDA.PREFETCH_DEPTH = 1          # Train batches made ahead (data/pipeline.py).
+_C.CUDA.REMAT = False               # Checkpoint each SlowFast ResStage (TPU.REMAT).
+_C.CUDA.REMAT_POLICY = ""           # "" = recompute the whole stage; "conv" = keep
+                                    # the convolution outputs, recompute the
+                                    # BN/ReLU/add chains (TPU.REMAT_POLICY).
 
 _C.DATA = CfgNode()
 # Input backend: 'auto' | 'cv2' | 'native' | 'online' (raw videos through the

@@ -34,9 +34,11 @@ cudaError_t component_extents_launch(const uint8_t* masks, int32_t* mnr,
                                      void* scratch, int B, int H, int W,
                                      int max_iters, cudaStream_t st);
 int64_t nms_smem_bytes(int64_t N);
+int64_t nms_scratch_bytes(int64_t B, int64_t N, int64_t max_out,
+                          int64_t max_smem);
 cudaError_t nms_launch(const float* boxes, const float* scores, int32_t* idx,
-                       bool* mask, int B, int N, int max_out, float thr,
-                       cudaStream_t st);
+                       bool* mask, void* scratch, int B, int N, int max_out,
+                       float thr, cudaStream_t st);
 cudaError_t sor_solve_launch(const float* const* fields, float* scratch,
                              float* du, float* dv, int B, int H, int W,
                              int n_sor, float alpha, float omega,
@@ -161,17 +163,22 @@ std::vector<torch::Tensor> nms(const torch::Tensor& boxes_in,
               "boxes must be (B, N, 4)");
   const int64_t B = boxes.size(0), N = boxes.size(1);
   TORCH_CHECK(scores.dim() == 2 && scores.size(0) == B && scores.size(1) == N,
-              "scores must be (B, N)");
+              "scores must be (B, N) = (", B, ", ", N, ")");
   TORCH_CHECK(B > 0 && N > 0 && max_out > 0, "nms: empty input or output");
-  TORCH_CHECK(nms_smem_bytes(N) <= kMaxSmem, "nms: ", N,
-              " boxes exceed one block's shared memory (",
-              nms_smem_bytes(N), " > ", kMaxSmem, " bytes)");
+  TORCH_CHECK(N < (int64_t{1} << 28), "nms: N must be < 2**28");
   const c10::cuda::CUDAGuard guard(boxes.device());
   auto idx = torch::empty({B, max_out}, boxes.options().dtype(torch::kInt32));
   auto mask = torch::empty({B, max_out}, boxes.options().dtype(torch::kBool));
+  // The shared-memory route while nms_smem_bytes(N) <= kMaxSmem (N <= 8192),
+  // else the device-memory route with its scratch.
+  const int64_t scratch_bytes = nms_scratch_bytes(B, N, max_out, kMaxSmem);
+  torch::Tensor scratch;
+  if (scratch_bytes > 0)
+    scratch = torch::empty({scratch_bytes}, boxes.options().dtype(torch::kUInt8));
   check_launch(nms_launch(boxes.data_ptr<float>(), scores.data_ptr<float>(),
-                          idx.data_ptr<int32_t>(), mask.data_ptr<bool>(), B, N,
-                          max_out, (float)thr,
+                          idx.data_ptr<int32_t>(), mask.data_ptr<bool>(),
+                          scratch_bytes > 0 ? scratch.data_ptr() : nullptr, B,
+                          N, max_out, (float)thr,
                           at::cuda::getCurrentCUDAStream()),
                "nms");
   return {idx, mask};
@@ -263,6 +270,11 @@ std::string component_extents_route_of(int64_t H, int64_t W) {
   return names[component_extents_route(H, W)];
 }
 
+// "shared" or "device" memory: where K3 keeps a frame of N boxes' keys.
+std::string nms_route_of(int64_t N) {
+  return nms_smem_bytes(N) <= kMaxSmem ? "shared" : "device";
+}
+
 std::string label_components_route_of(int64_t H, int64_t W) {
   return label_components_route(H, W) == 0 ? "cluster" : "device";
 }
@@ -278,4 +290,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("label_components", &label_components);
   m.def("component_extents_route", &component_extents_route_of);
   m.def("label_components_route", &label_components_route_of);
+  m.def("nms_route", &nms_route_of);
 }

@@ -40,7 +40,13 @@
 //   boxes. Two barriers per chunk instead of one per kept box.
 // Shared memory: 16 B of box and 4 B of kept index per box, 8 B of key per
 // padded position: 41 KB at the serving N = 1264, 162 KB at N = 5000, at
-// most N = 8192.
+// most N = 8192 (nms_smem_bytes <= one block's 232,448 bytes).
+// Past that, the device-memory route: the same kernel with the keys sorted in
+// a scratch array in device memory (the same bitonic network: a barrier
+// orders a block's device-memory writes as it does its shared ones), the
+// kept indices in device memory and the boxes read where they lie. The
+// scratch is 8 B per padded key and 4 B per slot a frame; the keys of a frame
+// (256 KB at N = 20000) stay in the 50 MB L2.
 
 #include <cuda_runtime.h>
 
@@ -132,15 +138,19 @@ __device__ void bitonic_sort(uint64_t* keys, int n) {
   }
 }
 
+__device__ __forceinline__ float4 load_box(const float* bx, int j) {
+  return make_float4(bx[4 * j], bx[4 * j + 1], bx[4 * j + 2], bx[4 * j + 3]);
+}
+
+// kShared: boxes, keys and kept indices in shared memory (N <= 8192); else
+// keys and kept indices in `scratch` (device memory), boxes read from `boxes`.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 nms_sorted_kernel(const float* __restrict__ boxes,
                   const float* __restrict__ scores, int32_t* __restrict__ idx_out,
-                  bool* __restrict__ mask_out, int N, int n_pad, int max_out,
-                  float thr) {
+                  bool* __restrict__ mask_out, uint64_t* __restrict__ scratch,
+                  int N, int n_pad, int max_out, float thr) {
   extern __shared__ float4 smem[];
-  float4* box = smem;
-  uint64_t* keys = reinterpret_cast<uint64_t*>(box + N);
-  int* kept = reinterpret_cast<int*>(keys + n_pad);
   __shared__ uint64_t rows[kChunk];
   __shared__ bool candidate[kChunk];
   __shared__ int n_kept_s;
@@ -150,10 +160,22 @@ nms_sorted_kernel(const float* __restrict__ boxes,
   const float* sc = scores + (size_t)blockIdx.x * N;
   int32_t* io = idx_out + (size_t)blockIdx.x * max_out;
   bool* mo = mask_out + (size_t)blockIdx.x * max_out;
+  float4* box = smem;
+  uint64_t* keys;
+  int* kept;
+  if (kShared) {
+    keys = reinterpret_cast<uint64_t*>(box + N);
+    kept = reinterpret_cast<int*>(keys + n_pad);
+  } else {
+    uint64_t* frame = scratch + (size_t)blockIdx.x * (n_pad + (max_out + 1) / 2);
+    keys = frame;
+    kept = reinterpret_cast<int*>(frame + n_pad);
+  }
+  auto box_at = [&](int j) { return kShared ? box[j] : load_box(bx, j); };
 
   for (int j = tid; j < n_pad; j += kThreads) {
     if (j < N) {
-      box[j] = make_float4(bx[4 * j], bx[4 * j + 1], bx[4 * j + 2], bx[4 * j + 3]);
+      if (kShared) box[j] = load_box(bx, j);
       keys[j] = sort_key(sc[j], j);
     } else {
       keys[j] = ~0ull;
@@ -169,15 +191,15 @@ nms_sorted_kernel(const float* __restrict__ boxes,
     bool live = false;
     uint64_t row = 0;
     if (pos < N && key_score(keys[pos]) > kNeg * 0.5f) {
-      const float4 bt = box[(uint32_t)keys[pos]];
+      const float4 bt = box_at((uint32_t)keys[pos]);
       const float at = area_of(bt);
       live = true;
       for (int k = sub; k < n_kept && live; k += kPerCandidate) {
-        const float4 kb = box[kept[k]];
+        const float4 kb = box_at(kept[k]);
         live = !overlaps(bt, at, kb, area_of(kb), thr);
       }
       for (int o = t + 1 + sub; o < kChunk && base + o < N; o += kPerCandidate) {
-        const float4 ob = box[(uint32_t)keys[base + o]];
+        const float4 ob = box_at((uint32_t)keys[base + o]);
         if (overlaps(ob, area_of(ob), bt, at, thr)) row |= 1ull << o;
       }
     }
@@ -239,18 +261,34 @@ int padded(int64_t N) {
 // indices, and the sort keys padded to a power of two.
 int64_t nms_smem_bytes(int64_t N) { return 20 * N + 8 * (int64_t)padded(N); }
 
+// Bytes of device-memory scratch the device-memory route needs for B frames
+// (0 for the shared-memory route): the padded keys and the kept indices.
+int64_t nms_scratch_bytes(int64_t B, int64_t N, int64_t max_out,
+                          int64_t max_smem) {
+  if (nms_smem_bytes(N) <= max_smem) return 0;
+  return 8 * B * ((int64_t)padded(N) + (max_out + 1) / 2);
+}
+
 // Launches one block per frame on `stream`: boxes (B, N, 4) xyxy float32,
 // scores (B, N) float32 -> idx (B, max_out) int32, mask (B, max_out) bool.
+// A null `scratch` takes the shared-memory route, else the device-memory
+// route with nms_scratch_bytes of scratch.
 cudaError_t nms_launch(const float* boxes, const float* scores, int32_t* idx,
-                       bool* mask, int B, int N, int max_out, float thr,
-                       cudaStream_t st) {
+                       bool* mask, void* scratch, int B, int N, int max_out,
+                       float thr, cudaStream_t st) {
   if (B <= 0 || N <= 0 || max_out <= 0) return cudaErrorInvalidValue;
+  if (scratch != nullptr) {
+    nms_sorted_kernel<false><<<B, kThreads, 0, st>>>(
+        boxes, scores, idx, mask, static_cast<uint64_t*>(scratch), N, padded(N),
+        max_out, thr);
+    return cudaGetLastError();
+  }
   const size_t smem = (size_t)nms_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
-      nms_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nms_sorted_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  nms_sorted_kernel<<<B, kThreads, smem, st>>>(boxes, scores, idx, mask, N,
-                                               padded(N), max_out, thr);
+  nms_sorted_kernel<true><<<B, kThreads, smem, st>>>(
+      boxes, scores, idx, mask, nullptr, N, padded(N), max_out, thr);
   return cudaGetLastError();
 }

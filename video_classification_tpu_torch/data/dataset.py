@@ -10,8 +10,10 @@ A clip is (T, H, W, 21) uint8: 0:3 BGR, 3:5 UV, 5:20 flow (5 frames x 3
 channels), 20:21 depth (chalearn_dataset.py:103-113). A missing part crop is
 filled with 127 (chalearn_dataset.py:115-116). With
 ``DATA.SYNTHETIC_NUM_VIDEOS > 0`` the clips are synthetic, in memory, and
-equal to the JAX package's. Frames are read with cv2 (imported only then);
-the C++ loader of ``DATA.BACKEND native`` is not ported.
+equal to the JAX package's. Frames are decoded on the host, as in the JAX
+package: ``DATA.BACKEND`` 'auto' takes the native C++ loader
+(native/loader.py) when it builds and cv2 otherwise, 'native' raises when
+the loader cannot be built, 'cv2' reads with cv2 (imported only then).
 
 The batchers stack what the dataset gives: numpy clips as numpy arrays, and
 clips already on a device (the online dataset's) as tensors there.
@@ -22,7 +24,7 @@ from __future__ import annotations
 import random as pyrandom
 from glob import glob
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,10 +56,6 @@ class ChalearnVideoDataset:
     def __init__(self, cfg, name_of_set: str, sampling: Optional[str] = None) -> None:
         if name_of_set not in SETS:
             raise ValueError(f"name_of_set must be one of {SETS}, got {name_of_set!r}")
-        if str(cfg.DATA.BACKEND) == "native":
-            raise NotImplementedError(
-                "DATA.BACKEND 'native' (the C++ clip loader) is not ported; "
-                "use 'auto' or 'cv2'")
         self.cfg = cfg
         self.name_of_set = name_of_set
         self.clip_len = int(cfg.CHALEARN.CLIP_LEN)
@@ -73,9 +71,30 @@ class ChalearnVideoDataset:
             self.labels = get_labels(cfg, name_of_set)
         # Sampling policy (chalearn_dataset.py:52-58).
         self.sampling = sampling or ("random" if name_of_set == "train" else "uniform")
+        # The host decoder: the C++ worker pool for 'auto' and 'native' when
+        # it builds, else cv2 ('native' raises instead).
+        self._native = None
+        backend = str(cfg.DATA.BACKEND)
+        if not self.synthetic and backend in ("auto", "native"):
+            from ..native import loader
+
+            if loader.native_available():
+                self._native = loader.NativeClipLoader(num_threads=min(int(cfg.NUM_CPU), 8))
+            elif backend == "native":
+                raise RuntimeError("DATA.BACKEND 'native' but the native loader is "
+                                   f"unavailable: {loader.build_error()}")
+
+    @property
+    def decoder(self) -> str:
+        """'synthetic', 'native' or 'cv2': what makes this dataset's clips."""
+        return "synthetic" if self.synthetic else "native" if self._native else "cv2"
 
     def __len__(self) -> int:
         return len(self.labels)
+
+    def sample_shape(self) -> Tuple[int, int, int, int]:
+        """Per-clip array shape (T, S, S, 21), without decoding."""
+        return (self.clip_len, self.crop_size, self.crop_size, NUM_MODALITY_CHANNELS)
 
     # -- frame loading -----------------------------------------------------------
 
@@ -128,6 +147,14 @@ class ChalearnVideoDataset:
                  nsetx3x5: Path) -> np.ndarray:
         if self.synthetic:
             return self._synthetic_clip(index, clip_indices)
+        if self._native is not None:
+            from ..native.loader import frame_paths_for
+
+            paths: List[str] = []
+            for i in clip_indices:
+                paths.extend(frame_paths_for(Path(self.cfg.CHALEARN.ROOT), self.crop_folder,
+                                             nsetx3x5 / names[i]))
+            return self._native.load_clip(paths, len(clip_indices), self.crop_size)
         return np.stack([self._load_frame(nsetx3x5 / names[i]) for i in clip_indices])
 
     # -- public API -------------------------------------------------------------
@@ -215,3 +242,106 @@ def eval_batches(dataset, batch_size: int,
                    "valid": valid}
 
     return gen(), samples_per_video
+
+
+# -- host-sharded feeding (data parallelism over ranks, parallel/multihost.py) ---------
+
+
+def train_batches_for_host(dataset, global_batch: int, seed: int = 0,
+                           n_processes: Optional[int] = None, index: Optional[int] = None,
+                           shuffle: bool = True, drop_last: bool = True) -> Iterator[Dict]:
+    """Rank-local train feeding: {'x', 'label'} with this rank's rows only.
+
+    Every rank runs this with the same ``seed``: the shuffled epoch order is
+    the same everywhere, ``parallel.multihost.host_batch_indices`` hands rank
+    p the contiguous sub-block p of each global batch, and each clip's
+    ``random.Random`` comes from (seed, dataset index) alone, so a clip is
+    the same whichever rank loads it. With ``n_processes=1`` this gives the
+    global batches the ranks' rows concatenate to."""
+    from ..parallel.multihost import host_batch_indices
+
+    order = list(range(len(dataset)))
+    if shuffle:
+        pyrandom.Random(seed).shuffle(order)
+    for block in host_batch_indices(order, global_batch, n_processes, index,
+                                    drop_last=drop_last):
+        samples = [dataset.get_train_clip(i, pyrandom.Random(seed * 1_000_003 + i))
+                   for i in block]
+        yield {"x": stack_clips([s["x"] for s in samples]),
+               "label": np.asarray([s["label"] for s in samples], np.int32)}
+
+
+class ShardedEvalPlan(NamedTuple):
+    """The sharded eval's layout, the same on every rank and made from the
+    clip counts alone (``num_eval_clips`` reads no frame).
+
+    Rank q decodes only videos q, q+P, q+2P, ...; every rank runs
+    ``n_steps`` steps of ``local_batch`` rows (all-padding tail batches keep
+    the counts equal), and the gathered scores of rank q's rows go back to
+    ``positions[q]``, the global video-major clip order."""
+
+    n_processes: int
+    local_batch: int          # rows each rank contributes per step
+    n_steps: int
+    samples_per_video: List[int]
+    labels: np.ndarray        # (total_clips,) int32, global video-major order
+    positions: List[np.ndarray]  # positions[q][j]: global index of rank q's j-th clip
+
+
+def sharded_eval_plan(dataset, global_batch: int, n_processes: int) -> ShardedEvalPlan:
+    if global_batch % n_processes:
+        raise ValueError(f"global batch {global_batch} does not divide by {n_processes} ranks")
+    spv = [dataset.num_eval_clips(i) for i in range(len(dataset))]
+    offsets = np.concatenate([[0], np.cumsum(spv)]).astype(np.int64)
+    labels = np.repeat(np.asarray([dataset.labels[i][2] - 1 for i in range(len(dataset))],
+                                  np.int32), spv)
+    positions = []
+    for q in range(n_processes):
+        pos = [np.arange(offsets[v], offsets[v + 1])
+               for v in range(q, len(dataset), n_processes)]
+        positions.append(np.concatenate(pos) if pos else np.zeros((0,), np.int64))
+    local_batch = global_batch // n_processes
+    n_steps = max((-(-len(p) // local_batch) for p in positions), default=0)
+    return ShardedEvalPlan(n_processes, local_batch, max(n_steps, 1), spv, labels, positions)
+
+
+def eval_batches_for_host(dataset, plan: ShardedEvalPlan, index: int,
+                          seed: int = 0) -> Iterator[Dict]:
+    """Rank ``index``'s share of the sharded eval: decodes only videos
+    ``index, index+P, ...`` and yields exactly ``plan.n_steps`` batches of
+    ``plan.local_batch`` rows ({'x', 'label', 'valid'}), the clips in
+    eval_batches' per-video order and with its per-video clip RNG."""
+    pending_x: list = []
+    pending_y: List[int] = []
+    emitted = 0
+    lb = plan.local_batch
+
+    def drain(final: bool):
+        nonlocal pending_x, pending_y, emitted
+        while len(pending_x) >= lb or (final and emitted < plan.n_steps):
+            n = min(len(pending_x), lb)
+            if n == 0:  # an all-padding step (other ranks still have rows)
+                yield {"x": np.zeros((lb,) + dataset.sample_shape(), np.uint8),
+                       "label": np.zeros(lb, np.int32), "valid": np.zeros(lb, bool)}
+            else:
+                valid = np.zeros(lb, bool)
+                valid[:n] = True
+                yield {"x": stack_clips(pending_x[:n] + [pending_x[0]] * (lb - n)),
+                       "label": np.asarray(pending_y[:n] + [0] * (lb - n), np.int32),
+                       "valid": valid}
+                pending_x, pending_y = pending_x[n:], pending_y[n:]
+            emitted += 1
+            if emitted == plan.n_steps:
+                return
+
+    for v in range(index, len(dataset), plan.n_processes):
+        item = dataset.get_eval_clips(v, pyrandom.Random(seed * 1_000_003 + v))
+        if len(item["clips"]) != plan.samples_per_video[v]:
+            raise AssertionError(f"video {v}: {len(item['clips'])} clips, "
+                                 f"{plan.samples_per_video[v]} planned")
+        pending_x.extend(item["clips"])
+        pending_y.extend([item["label"]] * len(item["clips"]))
+        yield from drain(final=False)
+        if emitted == plan.n_steps:
+            return
+    yield from drain(final=True)

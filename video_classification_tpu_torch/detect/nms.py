@@ -30,9 +30,12 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     mask (B, max_out) bool), in keep (score-descending) order.
 
     CPU tensors run ``nms_reference``; CUDA tensors launch the kernel (and
-    raise if it cannot build or launch). On CUDA, N is at most 8192: the
-    boxes and their sort keys, padded to a power of two, fill one block's
-    shared memory (``nms_smem_bytes``)."""
+    raise if it cannot build or launch), for any N. The kernel's route
+    switches past N = 8192 (``route``): up to there a frame's boxes and sort
+    keys, padded to a power of two, fill one block's shared memory
+    (``nms_smem_bytes`` of csrc/nms.cu); past it the keys are sorted in
+    device-memory scratch and the boxes read from device memory, with the
+    same results."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes must be (B, N, 4) and scores (B, N), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
@@ -45,6 +48,15 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
 
 
 nms.launches = 0
+
+MAX_SMEM = 232448  # dynamic shared memory of one H100 block (csrc/bindings.cpp)
+
+
+def route(n: int) -> str:
+    """'shared' or 'device': where K3 keeps a frame of ``n`` boxes' sort
+    keys (csrc/nms.cu; 'shared' for n <= 8192)."""
+    n_pad = max(64, 1 << (int(n) - 1).bit_length())
+    return "shared" if 20 * int(n) + 8 * n_pad <= MAX_SMEM else "device"
 
 
 def nms_reference(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,

@@ -70,12 +70,14 @@ class ModelManager:
     def crop_padding(self) -> int:
         return self.crop_size // 10
 
-    def crop_offsets(self, x_uint8: torch.Tensor,
-                     generator: torch.Generator) -> torch.Tensor:
+    def crop_offsets(self, x_uint8: torch.Tensor, generator: torch.Generator,
+                     rows: Optional[int] = None) -> torch.Tensor:
         """(N, 2) RandomCrop offsets for a (N, T, H, W, 21) batch, drawn from
-        ``generator``."""
+        ``generator``; for ``rows`` rows of that frame size if given (a
+        data-parallel rank draws for the global batch)."""
         n, _, h, w = x_uint8.shape[:4]
-        return random_crop_offsets(n, h, w, self.crop_size, self.crop_padding, generator)
+        return random_crop_offsets(n if rows is None else rows, h, w, self.crop_size,
+                                   self.crop_padding, generator)
 
     def normalize_and_prepare(self, x_uint8: torch.Tensor,
                               offsets: Optional[torch.Tensor] = None

@@ -23,7 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Linear, avg_pool_3d, conv3d, max_pool_3d
+from .layers import (REMAT_POLICIES, BatchNorm, Linear, avg_pool_3d, checkpointed, conv3d,
+                     max_pool_3d)
 
 MODEL_STAGE_DEPTH = {
     18: (1, 1, 1, 1),
@@ -97,7 +98,9 @@ class ResBlock(nn.Module):
 
 
 class ResStage(nn.Module):
-    """Stack of ResBlocks; stride and projection on block 0 only."""
+    """Stack of ResBlocks; stride and projection on block 0 only. With
+    ``remat`` set ("" or "conv", ``layers.checkpointed``'s policies) and
+    gradients enabled, the stage runs under activation checkpointing."""
 
     def __init__(self, depth, dim_in, dim_inner, dim_out, conv_a_kernel,
                  temporal_stride=1, spatial_stride=1):
@@ -109,11 +112,17 @@ class ResStage(nn.Module):
                      spatial_stride if j == 0 else 1,
                      use_branch1=(j == 0))
             for j in range(depth)])
+        self.remat: Optional[str] = None
 
-    def forward(self, x):
+    def _blocks(self, x):
         for block in self.res_blocks:
             x = block(x)
         return x
+
+    def forward(self, x):
+        if self.remat is None or not torch.is_grad_enabled():
+            return self._blocks(x)
+        return checkpointed(self._blocks, x, self.remat)
 
 
 class FuseFastToSlow(nn.Module):
@@ -196,11 +205,15 @@ class ResNetBasicHead(nn.Module):
     Dropout is flax's (inverted: kept values scaled by 1 / (1 - rate)) and
     runs only in training mode, with its mask drawn from the ``generator``
     the caller passes (the trainer's, on the model's device); a rate of 0
-    turns it off."""
+    turns it off. ``dropout_shard`` (index, count): the batch is shard
+    ``index`` of ``count`` equal row blocks of a global batch (a
+    data-parallel rank's), so the mask is drawn for the global batch and
+    the shard's rows kept."""
 
     def __init__(self, dim_in: int, num_classes: int, dropout_rate: float):
         super().__init__()
         self.dropout_rate = float(dropout_rate)
+        self.dropout_shard = (0, 1)
         self.proj = Linear(dim_in, num_classes)
 
     def dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
@@ -209,7 +222,10 @@ class ResNetBasicHead(nn.Module):
         if generator is None:
             raise ValueError("training-mode dropout needs an explicit torch.Generator")
         keep = 1.0 - self.dropout_rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        index, count = self.dropout_shard
+        n = x.shape[0]
+        mask = torch.rand((n * count, *x.shape[1:]), generator=generator,
+                          device=x.device)[index * n:(index + 1) * n] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -220,14 +236,20 @@ class ResNetBasicHead(nn.Module):
 class SlowFast(nn.Module):
     """The full network: forward([slow (N,5,T,H,W), fast (N,15,T,H,W)]) ->
     logits (N, num_classes) float32. ``dropout_rate`` is the head's
-    (``blocks[6].dropout_rate``, settable)."""
+    (``blocks[6].dropout_rate``, settable). ``remat`` (False) checkpoints
+    each pathway's ResStage with ``remat_policy`` ("" or "conv"), as the
+    JAX package's ``TPU.REMAT`` does: activations recomputed in the
+    backward instead of kept."""
 
     def __init__(self, num_classes: int, input_channels=(5, 15),
                  stem_dim_outs=(64, 8), depths=MODEL_STAGE_DEPTH[50],
                  fuse: bool = True, fusion_mode: str = "default",
                  head_pool_kernels=((4, 2, 2), (4, 2, 2)),
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         slow_dim, fast_dim = stem_dim_outs
         reduction = slow_dim // fast_dim
         fusion_ratio = 2 if fuse else 0
@@ -247,6 +269,8 @@ class SlowFast(nn.Module):
             fast = ResStage(depth, dim_in // reduction, dim_out // 4 // reduction,
                             dim_out // reduction, FAST_CONV_A[idx],
                             TEMPORAL_STRIDES[idx], SPATIAL_STRIDES[idx])
+            if remat:
+                slow.remat = fast.remat = str(remat_policy)
             blocks.append(MultiPathWayWithFuse(
                 [slow, fast], fusion(dim_out) if idx + 1 <= 3 else None))
             dim_in, dim_out = dim_out, dim_out * 2
@@ -275,6 +299,8 @@ def init_my_slowfast(cfg, input_channels=(5, 15), stem_dim_outs=(64, 8)) -> Slow
         depths=MODEL_STAGE_DEPTH[int(cfg.MODEL.DEPTH)],
         fuse=bool(cfg.MODEL.FUSE),
         fusion_mode=str(cfg.MODEL.FUSION_MODE),
+        remat=bool(cfg.CUDA.REMAT),
+        remat_policy=str(cfg.CUDA.REMAT_POLICY),
     )
 
 
