@@ -46,6 +46,9 @@ Phases, each fatal on failure:
      budget 256 / 64 / 8, 112x112 charts, bfloat16, seeded random weights):
      K1, K2 and K3 launch counts, the detect stage, and the detections'
      sanity (boxes inside the padded frame, charts 0..24, U/V in [0, 1]);
+     K3 on the box head's captured call (20 x 64 boxes, 8 slots) alone on
+     the device (20 calls queued behind a sleeping kernel, CUDA events)
+     beside its host-paced time and its bound;
   8. the synthetic-detector serving code at a small size on the card and on
      the CPU (plain versions), same frames and weights: clips within uint8
      +-1 on >= 99.9 %, scores within 5e-3;
@@ -72,7 +75,9 @@ Phases, each fatal on failure:
      (tests/goldens; frames regenerated by numpy copies of the golden
      tests' generators): the sinusoid 240x320 and natural 96x128 at +-1 on
      >= 99.9 %, the natural 240x320 at +-2 on >= 99.5 % beyond 8 px of the
-     border (the whole-frame fraction is logged);
+     border (the whole-frame fraction is logged); the natural 240x320 on the
+     per-op and the fused path within +-1 and +-2, whole frame and beyond
+     8 px, logged;
  14. slowfast-HTAH served at full width as in 6 with
      FlowParams(fuse_level="off"): K4, K5 and K2 must launch, K1 and K6
      must not;
@@ -135,7 +140,9 @@ Then the offline chain (pipeline/stages, detect/provider, pipeline/frame_io):
      charts) on the card against the CPU, exactly, at 8 x 480x640 ->
      800x1067 and at box sizes from 1x1 to 480x640; an ArrayFrameIO round
      trip; Cv2FrameIO() raising an ImportError that names ArrayFrameIO where
-     cv2 is absent (skipped, and logged, where it is present);
+     cv2 is absent; where cv2 is present, the same resizes and exact 2x
+     downscales of 3-8 channels (OpenCV's area rule past 4) against that
+     cv2.resize, the cases that differ recorded with its version;
  28. the whole chain at full width through ArrayFrameIO (lossless .npy
      payloads: no JPEG or AVI coding) with the synthetic provider: one
      130-frame 240x320 M_/K_ pair in train and one in test, every stage
@@ -222,11 +229,24 @@ Then the parallel slice (native/, parallel/, remat, engine/parallel_streams):
      checkpoint within the train bars; conv3d_temporal_sharded over two gloo
      ranks at a res4 conv_a's full-width shape against the unsharded
      convolution (TF32 off).
+Then the JAX package's checkpoint files:
+ 42. slowfast-HTAH (depth 50, 249 classes, CropHTAH 192, CLIP_LEN 20,
+     seeded) and a seeded SparseModel (249 x 5) written through
+     models/convert.torch_to_flax and utils/flax_msgpack as the files the
+     JAX package's save_checkpoint and SparseTrainer.save_ckpt write, at
+     their default paths (the file's MB and the seconds to write and to
+     read it back, equal to the weights); a Predictor on that root restores
+     tier 1 and serves one 130-frame 240x320 request, its scores bit-equal
+     to a Predictor given the weights directly; an EnsemblePredictor over
+     the five part streams (HTAH tier 1, the four others tier 2 from the
+     HTAH file, the fusion from its msgpack file) serves [21]'s three
+     videos, its probabilities bit-equal to the ensemble given the same
+     weights directly, K1 and K2 launched exactly as in [21].
 Then one JSON line describing each kernel (with its launches per online
 train step, from 18, per ensemble request, from 21, per offline video, from
 28 and 29, and per v2 video, from 34's DensePose run; K1, K2 and K3 with
 their offline rows from 30, K2 with its v2 rows from 34, K3 with its rows
-past 8192 from 38), the nvidia-smi line, and last {"ok": true,
+past 8192 from 38 and its box-head call alone from 7), the nvidia-smi line, and last {"ok": true,
 "device": {...}}. Exits non-zero without a result when CUDA is unavailable.
 """
 
@@ -1167,6 +1187,15 @@ def check_goldens(dev):
         if gated < frac:
             raise AssertionError(f"{name}: {gated} < {frac}")
         out[name] = {"within": gated, "whole_frame": whole}
+    # The natural 240x320 golden on both paths, within +-1 and +-2, over the
+    # whole frame and beyond 8 px of the border.
+    for path, params in (("per-op", FlowParams(fuse_level="off")), ("fused", FlowParams())):
+        got = video_flow_uint8(torch.from_numpy(make_natural_frames()).to(dev), params)
+        diff = np.abs(got.cpu().numpy().astype(np.int32) - want)
+        row = {f"pm{t}_{where}": round(float((d <= t).mean()), 6) for t in (1, 2)
+               for where, d in (("whole", diff), ("inner8", diff[:, inner]))}
+        log(f"  flow_natural_240x320, {path} path: {json.dumps(row)}")
+        out[f"flow_natural_240x320_{path}"] = row
     return out
 
 
@@ -2122,8 +2151,49 @@ def check_resizes_and_io(dev, work):
             log("  Cv2FrameIO() without cv2: ImportError naming ArrayFrameIO")
         else:
             raise AssertionError("Cv2FrameIO() did not raise without cv2")
-    else:
-        log("  Cv2FrameIO() check skipped: this machine has cv2")
+        return None
+    log("  Cv2FrameIO() check skipped: this machine has cv2")
+    return resizes_against_cv2(dev, cases, g)
+
+
+def resizes_against_cv2(dev, cases, g):
+    """[27] The port's resizes on the card against this machine's
+    cv2.resize, on [27]'s cases and on exact 2x downscales of 3-8 channels
+    (OpenCV's area rule past 4 channels). A difference is recorded (the cv2
+    version, the cases), not fatal: the rules were found against another
+    cv2 build."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.ops.image import resize_linear_u8
+
+    flags = {"uint8 linear": cv2.INTER_LINEAR, "float32 linear": cv2.INTER_LINEAR,
+             "nearest": cv2.INTER_NEAREST}
+    checks = [(what, fn, x, hw, flags[what]) for what, fn, x, hw in cases]
+    for c in (3, 4, 5, 6, 7, 8):
+        for hw in ((1, 1), (2, 3), (29, 17), (64, 64), (96, 128)):
+            x = torch.randint(0, 256, (2, 2 * hw[0], 2 * hw[1], c), generator=g,
+                              dtype=torch.uint8)
+            checks.append((f"uint8 exact 2x, {c} channels", resize_linear_u8, x, hw,
+                           cv2.INTER_LINEAR))
+    differ = []
+    for what, fn, x, hw, flag in checks:
+        got = fn(x.to(dev), hw).cpu().numpy()
+        src = x.numpy()
+        if src.dtype == np.int32:  # charts: cv2 resizes uint8 labels
+            src = src.astype(np.uint8)
+        want = np.stack([cv2.resize(im, (hw[1], hw[0]), interpolation=flag) for im in src])
+        want = want.reshape(got.shape).astype(got.dtype)
+        if not np.array_equal(got, want):
+            diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+            differ.append({"case": what, "from": list(x.shape[1:3]), "to": list(hw),
+                           "values_differing": int((diff > 0).sum()),
+                           "max_abs_diff": float(diff.max())})
+    row = {"cv2": cv2.__version__, "cases": len(checks), "equal": len(checks) - len(differ),
+           "differing": differ}
+    log(f"  the port's resizes on the card against this machine's cv2: {json.dumps(row)}")
+    return row
 
 
 def offline_chain_full_width(dev, work):
@@ -3274,6 +3344,140 @@ def train_parallel_full_width(root: str):
             "temporal": t[0]}
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one fn() alone: reps calls queued behind a sleeping
+    kernel, so the host's launch rate leaves no gaps between them, timed by
+    CUDA events around the calls."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_box_head_nms(serving_calls):
+    """[7] K3 on the box head's captured call (20 x 64 boxes, 8 slots, 0.5)
+    alone on the device, beside the host-paced time of [5] and the bound."""
+    from video_classification_tpu_torch.detect.nms import nms, nms_reference
+
+    (boxes, scores, max_out, thr), = [c for c in serving_calls if c[1].shape[1] == 64]
+    ki, km = nms_reference(boxes, scores, max_out, thr)
+    ms = queued_ms(lambda: nms(boxes, scores, max_out, thr))
+    host_ms = cuda_ms(lambda: nms(boxes, scores, max_out, thr), reps=20)
+    bsz, n = scores.shape
+    bound_ms, bound_by = bound(nms_scan_ops(scores, ki, km), bsz * n * 20 + bsz * max_out * 5)
+    row = {"batch": f"{bsz}x{n}", "max_out": max_out, "thr": thr, "device_ms": round(ms, 5),
+           "host_paced_ms": round(host_ms, 5), "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"  K3 box-head call alone on the device: {json.dumps(row)}")
+    return row
+
+
+# -- checkpoints the JAX package writes ---------------------------------------------
+
+
+def write_jax_files(root: str, model, fusion):
+    """The files the JAX package's save_checkpoint and SparseTrainer.save_ckpt
+    write, from the port's models through torch_to_flax and the port's flax
+    msgpack codec: <root>/logs/checkpoints/slowfast-HTAH/acc0.500_e1.ckpt
+    and <root>/logs/sparse_fusion_ckpt/acc-0.500-epoch-1. Returns the
+    stream file's path, MB and seconds to convert and write."""
+    from pathlib import Path
+
+    from video_classification_tpu_torch.models import torch_to_flax
+    from video_classification_tpu_torch.utils import flax_msgpack
+
+    t0 = time.perf_counter()
+    ckpt = Path(root, "logs", "checkpoints", "slowfast-HTAH", "acc0.500_e1.ckpt")
+    ckpt.parent.mkdir(parents=True)
+    ckpt.write_bytes(flax_msgpack.to_bytes(torch_to_flax(model.state_dict(), "slowfast")))
+    write_s = time.perf_counter() - t0
+    fusion_file = Path(root, "logs", "sparse_fusion_ckpt", "acc-0.500-epoch-1")
+    fusion_file.parent.mkdir(parents=True)
+    fusion_file.write_bytes(flax_msgpack.to_bytes(
+        torch_to_flax(fusion.state_dict(), "sparse")["params"]))
+    return ckpt, ckpt.stat().st_size / 1e6, write_s
+
+
+def serve_from_jax_files(dev, root: str, videos, kernels, ens_counts):
+    """[42] slowfast-HTAH (depth 50, 249 classes, CropHTAH 192, CLIP_LEN 20,
+    seeded) and a seeded SparseModel (249 x 5) written as the JAX package's
+    flax msgpack files at its default paths; (a) a Predictor on that root
+    restores tier 1 and serves one 130-frame 240x320 request, its scores
+    bit-equal to a Predictor given the same weights directly; (b) an
+    EnsemblePredictor over the five part streams (HTAH tier 1, the other
+    four tier 2 from the HTAH file, the fusion from its msgpack file) serves
+    the three videos of [21], its probabilities bit-equal to the ensemble
+    given the same weights directly, K1 and K2 launched as in [21]."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from video_classification_tpu_torch.engine import EnsemblePredictor, ModelManager, Predictor
+    from video_classification_tpu_torch.engine.checkpoint import read_state_dict
+    from video_classification_tpu_torch.engine.sparse import PART_YAMLS
+    from video_classification_tpu_torch.models import SparseModel
+
+    cfg = htah_cfg(root)
+    model = ModelManager(cfg, dev).init_model()
+    fusion = SparseModel(249, len(PART_YAMLS), generator=torch.Generator().manual_seed(42))
+    ckpt, mb, write_s = write_jax_files(root, model, fusion)
+    t0 = time.perf_counter()
+    restored = read_state_dict(ckpt)
+    read_s = time.perf_counter() - t0
+    direct = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if restored.keys() != direct.keys() or not all(
+            torch.equal(restored[k], direct[k]) for k in direct):
+        raise AssertionError("[42] the JAX-format file does not read back to the weights")
+    log(f"  {ckpt}: {mb:.3f} MB, written in {write_s:.3f} s (torch_to_flax + to_bytes), "
+        f"read in {read_s:.3f} s (from_bytes + flax_to_torch); equal to the weights")
+
+    rgb, depth = videos[0]
+    from_file = Predictor(cfg, device=dev)
+    given = Predictor(htah_cfg(str(Path(root).parent / "no_checkpoints")), device=dev,
+                      state_dict=direct)
+    got, want = (p.predict_frames(rgb, depth)["probs"] for p in (from_file, given))
+    if got.shape != (249,) or not np.array_equal(got, want):
+        raise AssertionError(f"[42] Predictor from the JAX file: max diff "
+                             f"{np.abs(got - want).max()}")
+    log(f"  (a) Predictor restored tier 1 from the JAX file: scores bit-equal, top-1 "
+        f"{int(np.argmax(got)) + 1}")
+    del from_file, given
+
+    fusion_params = {k: v.detach().numpy() for k, v in fusion.state_dict().items()}
+    ens = EnsemblePredictor(cfg_overrides=["CHALEARN.ROOT", root], device=dev)
+    ref = EnsemblePredictor(cfg_overrides=["CHALEARN.ROOT", str(Path(root).parent /
+                                                                 "no_checkpoints")],
+                            device=dev, fusion_params=fusion_params)
+    for p in ref.predictors:
+        p.model.load_state_dict(direct)
+    for k in kernels:
+        k.launches = 0
+    got = [ens.predict_frames(r, d)["probs"] for r, d in videos]
+    counts = {k.__name__: k.launches for k in kernels}
+    want = [ref.predict_frames(r, d)["probs"] for r, d in videos]
+    if ens.fusion_source != str(Path(root, "logs", "sparse_fusion_ckpt", "acc-0.500-epoch-1")):
+        raise AssertionError(f"[42] the fusion came from {ens.fusion_source}")
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("[42] the ensemble from the JAX files differs: max diff "
+                             f"{max(float(np.abs(g - w).max()) for g, w in zip(got, want))}")
+    for k in kernels:
+        if counts[k.__name__] != ens_counts[k.__name__]:
+            raise AssertionError(f"[42] {k.__name__}: {counts[k.__name__]} launches, "
+                                 f"[21] {ens_counts[k.__name__]}")
+    log(f"  (b) EnsemblePredictor from the JAX files ({len(videos)} requests): probabilities "
+        f"bit-equal; launches {json.dumps(counts)} as in [21]")
+    return {"stream_file_mb": round(mb, 3), "write_s": round(write_s, 3),
+            "read_s": round(read_s, 3), "launches": counts}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3340,6 +3544,7 @@ def main() -> int:
         dev, root, videos, (flow_level, component_extents, nms), detector=detector,
         absent=per_op)
     check_detections(seen, (480, 640))
+    k3_box_head = time_box_head_nms(calls)
     log("[8] small serve: card vs cpu")
     serve_small_against_cpu(dev, root)
     log("[9] small DensePose-detector serve: card vs cpu")
@@ -3408,13 +3613,18 @@ def main() -> int:
             train_small_against_cpu(dev, roots[f"small_{name}"], name, card_spread=True)
         log("[26] the CLI on the card: sparse-train on [21]'s materials, tools how-many-classes")
         cli_on_card(roots["ensemble"], [i % 249 + 1 for i in range(8)])
+        log("[42] serving from the JAX package's checkpoint files (flax msgpack) at full "
+            "width: Predictor, then the five-stream ensemble")
+        jax_files = serve_from_jax_files(dev, str(Path(ens_root) / "jax_files"), videos,
+                                         (flow_level, component_extents), ens_counts)
     finally:
         shutil.rmtree(ens_root, ignore_errors=True)
 
     offline_root = tempfile.mkdtemp(prefix="offline_", dir=Path(root).parent)
     try:
-        log("[27] the provider's resizes on the card vs the cpu; frame I/O")
-        check_resizes_and_io(dev, offline_root)
+        log("[27] the provider's resizes on the card vs the cpu and vs this machine's cv2; "
+            "frame I/O")
+        resizes_cv2 = check_resizes_and_io(dev, offline_root)
         log("[28] the offline chain at full width (ArrayFrameIO, synthetic provider)")
         chain_root, chain_counts28, chain_s, k1_calls = offline_chain_full_width(
             dev, offline_root)
@@ -3488,6 +3698,7 @@ def main() -> int:
             row["v2"] = v2_k2
         if name == "nms":
             row["past_8192"] = k3_big
+            row["box_head_alone"] = k3_box_head
         return row
 
     kernels = [
@@ -3523,7 +3734,8 @@ def main() -> int:
         f"at batch {v2_batch} ({v2_batch / v2_step_s:.3f} clips/s, "
         f"{v2_peak / 2**30:.3f} GiB); native loader {json.dumps(native)}; remat "
         f"{json.dumps(remat)}; data parallel {json.dumps(dp)}; train-parallel and temporal "
-        f"{json.dumps(streams)}")
+        f"{json.dumps(streams)}; JAX checkpoint files {json.dumps(jax_files)}; resizes "
+        f"against cv2 {json.dumps(resizes_cv2)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

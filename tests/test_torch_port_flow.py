@@ -97,17 +97,25 @@ def test_gaussian_blur_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("src,dst", [((240, 320), (180, 240)),
-                                     ((40, 48), (30, 36)),
-                                     ((30, 36), (40, 48)),
-                                     ((22, 27), (30, 36))])
-def test_resize_bilinear_matches_jax(src, dst):
-    """Antialiased downsampling (the pyramid) and plain upsampling (the flow
-    between levels) both match jax.image.resize(..., 'linear')."""
-    x = np.random.RandomState(4).rand(2, *src, 3).astype(np.float32)
+def _pyramid_steps(h, w):
+    """Every downsampling step of the pyramid of (h, w) and every flow
+    upsampling between its levels."""
+    shapes = jflow._pyramid_shapes(h, w, 0.75, 20)
+    return [(a, b, 3) for a, b in zip(shapes, shapes[1:])] + \
+        [(b, a, 1) for a, b in zip(shapes, shapes[1:])]
+
+
+@pytest.mark.parametrize("src,dst,channels", [
+    step for hw in ((240, 320), (96, 128), (56, 72), (40, 48)) for step in _pyramid_steps(*hw)])
+def test_resize_bilinear_matches_jax(src, dst, channels):
+    """Antialiased downsampling (the pyramid's images) and upsampling (the
+    flow between levels) match jax.image.resize(..., 'linear') at every
+    step of four pyramids."""
+    x = np.random.RandomState(4).rand(2, *src, channels).astype(np.float32)
     want = np.asarray(jflow._resize_bilinear(jnp.asarray(x), dst))
     got = tflow._resize_bilinear(torch.from_numpy(x), dst).numpy()
-    np.testing.assert_allclose(got, want, atol=2e-6)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2.4e-7, rtol=0)
 
 
 def test_pyramid_shapes_match_jax():

@@ -2,9 +2,9 @@
 
 Run in subprocesses, because tests/conftest.py imports jax:
 importing every module of ``video_classification_tpu_torch`` (the train,
-ensemble, offline-chain, v2 and parallel slices' among them, with
-``native/`` and ``parallel/``) pulls in neither jax,
-flax, optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
+ensemble, offline-chain, v2, parallel and checkpoint-compatibility slices'
+among them, with ``native/`` and ``parallel/``) pulls in neither jax,
+flax, msgpack, optax, the JAX package nor cv2; ``python -m video_classification_tpu_torch
 --help`` lists the JAX CLI's subcommands; ``chip_smoke.py`` refuses to run
 without CUDA, and outside a checkout.
 In-process: entry points default to CUDA and raise when there is none; the
@@ -24,7 +24,7 @@ from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "video_classification_tpu_torch"
-FORBIDDEN = ("jax", "flax", "optax", "video_classification_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "optax", "video_classification_tpu")
 TRAIN_SLICE = ("data.dataset", "data.pipeline", "engine.trainer", "ops.segment",
                "profile_train", "utils.labels", "utils.logging")
 ENSEMBLE_SLICE = ("__main__", "engine.sparse", "models.res3d", "models.resnet2d",
@@ -36,6 +36,7 @@ V2_SLICE = ("models.raft", "models.raft_convert", "profile_v2", "v2", "v2.conver
             "v2.dataset", "v2.part_compose", "v2.trainer", "v2.video_io")
 PARALLEL_SLICE = ("engine.parallel_streams", "native", "native.loader", "parallel",
                   "parallel.mesh", "parallel.multihost", "parallel.temporal")
+COMPAT_SLICE = ("utils.flax_msgpack", "utils.profiling", "models.convert", "config.node")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -53,7 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}]\n"
         "assert not bad, bad\n"
-        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE + V2_SLICE + PARALLEL_SLICE!r}\n"
+        f"missing = [m for m in {TRAIN_SLICE + ENSEMBLE_SLICE + OFFLINE_SLICE + V2_SLICE + PARALLEL_SLICE + COMPAT_SLICE!r}\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('modules', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")

@@ -2,9 +2,11 @@
 
 The JAX package's key surface (``config/defaults.py`` there), with its
 ``TPU.*`` namespace replaced by ``CUDA.*``: the compute and parameter dtypes,
-the seed of random initialisation and of the trainer's generators, and the
-prefetch depth. The TPU layout knobs (mesh, remat, packed fast pathway,
-buffer donation, compile cache) have no counterpart here.
+the seed of random initialisation and of the trainer's generators, the
+prefetch depth and remat. The TPU routes (mesh, packed fast pathway, buffer
+donation, compile cache) have no counterpart here. ``TPU.*`` keys in a yaml,
+in ``cfg_override.yaml`` or in an override list are still read
+(``node.TPU_TO_CUDA``, ``node.TPU_ROUTES``).
 """
 
 from pathlib import Path
@@ -94,16 +96,28 @@ def get_cfg() -> CfgNode:
     return _C.clone()
 
 
+def _merge_override(cfg: CfgNode) -> CfgNode:
+    for override in _DEFAULT_OVERRIDE_LOCATIONS:
+        if override.is_file():
+            cfg.merge_from_file(override)
+            break
+    return cfg
+
+
+def get_override_cfg() -> CfgNode:
+    """The default config merged with the machine-local ``cfg_override.yaml``
+    (``../cfg_override.yaml`` first, outside the checkout, then one in the
+    working directory), the file the JAX package reads too."""
+    return _merge_override(get_cfg())
+
+
 def load_model_cfg(model_yaml_name: str, overrides=None) -> CfgNode:
     """3-layer merge: defaults <- config/yamls/<name>.yaml <- cfg_override.yaml,
     then ``overrides`` (a flat KEY VALUE list)."""
     cfg = get_cfg()
     yaml_path = Path(__file__).parent / "yamls" / f"{model_yaml_name}.yaml"
     cfg.merge_from_file(yaml_path)
-    for override in _DEFAULT_OVERRIDE_LOCATIONS:
-        if override.is_file():
-            cfg.merge_from_file(override)
-            break
+    _merge_override(cfg)
     if overrides:
         cfg.merge_from_list(list(overrides))
     return cfg

@@ -2,15 +2,22 @@
 
 Same API subset and merge semantics as the JAX package's ``config/node.py``
 (attribute access, ``clone``, ``merge_from_file``, ``merge_from_other_cfg``,
-``merge_from_list``, ``freeze``/``defrost``): unknown keys raise
-``KeyError``, merged values are type-checked against the default with the yacs
-casts, lists are replaced wholesale.
+``merge_from_list``, ``freeze``/``defrost``, ``to_dict``, ``dump``): unknown
+keys raise ``KeyError``, merged values are type-checked against the default
+with the yacs casts, lists are replaced wholesale.
+
+The JAX package's ``TPU.*`` keys, from a file or a list, are read into a tree
+that has a ``CUDA`` namespace and no ``TPU`` one: the six with a counterpart
+set ``CUDA.<key>``, the five TPU routes (``TPU_ROUTES``) are ignored with one
+printed warning, and any other ``TPU.*`` key raises ``KeyError``.
 
 The config files this package reads are block mappings of scalars
-(``config/yamls/*.yaml``), so ``load_yaml`` parses that subset of YAML itself
-and resolves plain scalars the way ``yaml.safe_load`` does (YAML 1.1: ``5e-4``
-has no dot and stays a string, ``yes``/``no`` are booleans). Command-line
-overrides are coerced with ``ast.literal_eval`` as in yacs.
+(``config/yamls/*.yaml``) and, in files ``yaml.safe_dump`` wrote, block
+sequences of scalars, so ``load_yaml`` parses that subset of YAML itself and
+resolves plain scalars the way ``yaml.safe_load`` does (YAML 1.1: ``5e-4``
+has no dot and stays a string, ``yes``/``no`` are booleans); ``dump`` writes
+that subset. Command-line overrides are coerced with ``ast.literal_eval`` as
+in yacs.
 """
 
 from __future__ import annotations
@@ -18,9 +25,18 @@ from __future__ import annotations
 import ast
 import copy
 import re
-from typing import Any, Dict, List
+import math
+from typing import Any, Dict, List, Tuple
 
 _VALID_SCALAR_TYPES = (bool, int, float, str, type(None))
+
+# The JAX package's TPU namespace (its config/defaults.py:64-90): the keys that
+# have a CUDA.* counterpart of the same name, and the TPU routes (device mesh,
+# buffer donation, the packed fast pathway, XLA's compile cache) that have none.
+TPU_TO_CUDA = ("COMPUTE_DTYPE", "PARAM_DTYPE", "SEED", "PREFETCH_DEPTH", "REMAT",
+               "REMAT_POLICY")
+TPU_ROUTES = ("MESH_SHAPE", "MESH_AXES", "DONATE_STATE", "PACK_FAST",
+              "COMPILATION_CACHE_DIR")
 
 # PyYAML's implicit resolvers for plain scalars (YAML 1.1), restricted to
 # decimal integers; octal, hex and base-60 forms are not read as numbers.
@@ -74,11 +90,13 @@ def load_yaml(text: str) -> Dict[str, Any] | None:
     """Parse a block mapping of scalars (any nesting depth) without PyYAML.
 
     Covers what config files of this package hold: ``KEY:`` opening a nested
-    mapping, ``KEY: scalar`` and comments. Anything else raises ValueError.
+    mapping or a block sequence of ``- scalar`` items, ``KEY: scalar`` and
+    comments. Anything else raises ValueError.
     """
     root: Dict[str, Any] = {}
     stack: List = []  # (indent of the mapping's keys, mapping)
     pending = None  # (indent, mapping, key) of a "KEY:" awaiting its block
+    seq = None  # (indent, list) of the block sequence being read
     for lineno, raw in enumerate(text.splitlines(), 1):
         line = _strip_comment(raw).rstrip()
         if not line.strip() or line.strip() == "---":
@@ -86,6 +104,17 @@ def load_yaml(text: str) -> Dict[str, Any] | None:
         indent = len(line) - len(line.lstrip(" "))
         if "\t" in line[:indent]:
             raise ValueError(f"line {lineno}: tab indentation")
+        item = line.strip()
+        if item == "-" or item.startswith("- "):  # a block sequence's item
+            if pending is not None and indent >= pending[0]:
+                seq = (indent, [])
+                pending[1][pending[2]] = seq[1]
+                pending = None
+            if seq is None or indent != seq[0]:
+                raise ValueError(f"line {lineno}: a sequence item outside a sequence")
+            seq[1].append(_scalar(item[1:].strip()))
+            continue
+        seq = None
         key, sep, rest = line.strip().partition(":")
         if not sep or (rest and not rest.startswith(" ")):
             raise ValueError(f"line {lineno}: not a 'KEY: value' line: {raw!r}")
@@ -108,6 +137,43 @@ def load_yaml(text: str) -> Dict[str, Any] | None:
             mapping[key] = None
             pending = (indent, mapping, key)
     return root or None
+
+
+def _dump_scalar(v: Any) -> str:
+    """A scalar as text that ``_scalar`` (and ``yaml.safe_load``) read back
+    as the same value and type."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        return text if "." in text else text.replace("e", ".0e", 1)
+    return "'" + str(v).replace("'", "''") + "'"
+
+
+def _dump_lines(mapping: Dict[str, Any], indent: int) -> List[str]:
+    pad = " " * indent
+    lines = []
+    for key in sorted(mapping):
+        value = mapping[key]
+        if isinstance(value, dict):
+            lines.append(f"{pad}{key}:")
+            lines += _dump_lines(value, indent + 2)
+        elif isinstance(value, list):
+            if any(isinstance(x, (dict, list)) for x in value):
+                raise ValueError(f"{key}: only lists of scalars can be dumped")
+            lines.append(f"{pad}{key}:")
+            lines += [f"{pad}- {_dump_scalar(x)}" for x in value]
+        else:
+            lines.append(f"{pad}{key}: {_dump_scalar(value)}")
+    return lines
 
 
 def _literal(value: str) -> Any:
@@ -212,7 +278,19 @@ class CfgNode(dict):
             dict.__setitem__(node, k, copy.deepcopy(v, memo))
         return node
 
+    def _takes_tpu_keys(self) -> bool:
+        return "TPU" not in self and isinstance(self.get("CUDA"), CfgNode)
+
     def merge_from_other_cfg(self, other: "CfgNode") -> None:
+        if self._takes_tpu_keys() and "TPU" in other:
+            tpu = other["TPU"]
+            if not isinstance(tpu, CfgNode):
+                raise ValueError("Cannot merge a non-dict TPU value")
+            other = CfgNode({k: v for k, v in other.items() if k != "TPU"})
+            _merge_into(other, self, [])
+            for key, value in _tpu_to_cuda(tpu.items()):
+                dict.__setitem__(self.CUDA, key, _coerce(value, self.CUDA[key], f"TPU.{key}"))
+            return
         _merge_into(other, self, [])
 
     def merge_from_file(self, filename) -> None:
@@ -225,7 +303,13 @@ class CfgNode(dict):
     def merge_from_list(self, opts: List[Any]) -> None:
         if len(opts) % 2 != 0:
             raise ValueError(f"Override list has odd length: {opts}")
-        for full_key, value in zip(opts[0::2], opts[1::2]):
+        pairs = list(zip(opts[0::2], opts[1::2]))
+        if self._takes_tpu_keys():  # "TPU.<key>" -> "CUDA.<key>", routes dropped
+            kept = {k for k, _ in _tpu_to_cuda([(k[4:], v) for k, v in pairs
+                                                if k.startswith("TPU.")])}
+            pairs = [("CUDA." + k[4:] if k.startswith("TPU.") else k, v) for k, v in pairs
+                     if not k.startswith("TPU.") or k[4:] in kept]
+        for full_key, value in pairs:
             keys = full_key.split(".")
             node = self
             for sub in keys[:-1]:
@@ -239,8 +323,44 @@ class CfgNode(dict):
                 value = _literal(value)
             dict.__setitem__(node, leaf, _coerce(value, node[leaf], full_key))
 
+    def to_dict(self) -> Dict[str, Any]:
+        def convert(v):
+            if isinstance(v, CfgNode):
+                return {k: convert(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [convert(x) for x in v]
+            return v
+
+        return convert(self)
+
+    def dump(self) -> str:
+        """The tree as YAML (keys sorted, strings quoted) that ``load_yaml``
+        and ``merge_from_file`` read back to the same values."""
+        return "\n".join(_dump_lines(self.to_dict(), 0)) + "\n"
+
+    def __str__(self) -> str:
+        return self.dump()
+
     def __repr__(self) -> str:
         return f"CfgNode({dict.__repr__(self)})"
+
+
+def _tpu_to_cuda(items) -> List[Tuple[str, Any]]:
+    """(key, value) pairs of the JAX package's TPU namespace -> the pairs of
+    the CUDA keys they set; the TPU routes are dropped, named in one
+    warning; another key raises ``KeyError``."""
+    out, ignored = [], []
+    for key, value in items:
+        if key in TPU_TO_CUDA:
+            out.append((key, value))
+        elif key in TPU_ROUTES:
+            ignored.append(f"TPU.{key}")
+        else:
+            raise KeyError(f"Non-existent config key: TPU.{key}")
+    if ignored:
+        print(f"warning: {', '.join(ignored)} choose TPU routes that the CUDA port "
+              "does not have; ignored")
+    return out
 
 
 def _merge_into(src: CfgNode, dst: CfgNode, key_path: List[str]) -> None:

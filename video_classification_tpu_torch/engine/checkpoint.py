@@ -1,4 +1,4 @@
-"""Best-accuracy checkpoints in the port's own format.
+"""Best-accuracy checkpoints; the port reads the JAX package's too.
 
   * save: ``<ROOT>/logs/checkpoints/<model-name>/acc%.3f_e%d.ckpt``, a
     ``torch.save`` of the model's state_dict (the reference's naming,
@@ -8,8 +8,13 @@
     stream (train.py:198-214); tier 3, the Kinetics warm start from a
     pytorchvideo state_dict (``load_torch_warmstart``, train.py:93-111).
 
-Flax msgpack checkpoints of the JAX package cannot be read here; weights
-cross over through ``models/convert.state_dict_from_jax``.
+Tiers 1 and 2 read each file in its own format (``read_state_dict``): the
+port's ``torch.save`` zip, or the flax msgpack file that the JAX package's
+``save_checkpoint`` writes at the same path, converted by
+``models/convert.flax_to_torch``. A root may hold files of both packages;
+the sorted glob picks the highest accuracy whichever wrote it. Both load
+strictly: a missing or extra key raises and names the key. The JAX
+package's orbax directories are refused (reading them needs tensorstore).
 """
 
 from __future__ import annotations
@@ -23,23 +28,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# The layers whose shapes differ from the Kinetics SlowFast (the stems and
-# stage inputs take other channel counts, the head other classes):
-# train.py:94-108, the list the JAX package's models/torch_convert.py keeps.
-MISMATCH_LAYERS = [
-    "blocks.0.multipathway_blocks.0.conv.weight",
-    "blocks.0.multipathway_blocks.1.conv.weight",
-    "blocks.6.proj.weight",
-    "blocks.6.proj.bias",
-    "blocks.1.multipathway_blocks.0.res_blocks.0.branch1_conv.weight",
-    "blocks.1.multipathway_blocks.0.res_blocks.0.branch2.conv_a.weight",
-    "blocks.2.multipathway_blocks.0.res_blocks.0.branch1_conv.weight",
-    "blocks.2.multipathway_blocks.0.res_blocks.0.branch2.conv_a.weight",
-    "blocks.3.multipathway_blocks.0.res_blocks.0.branch1_conv.weight",
-    "blocks.3.multipathway_blocks.0.res_blocks.0.branch2.conv_a.weight",
-    "blocks.4.multipathway_blocks.0.res_blocks.0.branch1_conv.weight",
-    "blocks.4.multipathway_blocks.0.res_blocks.0.branch2.conv_a.weight",
-]
+from ..models.convert import MISMATCH_LAYERS, delete_mismatch, flax_to_torch  # noqa: F401
+from ..utils import flax_msgpack
+
+_ZIP_MAGIC = b"PK\x03\x04"
 
 
 def ckpt_dir(cfg) -> Path:
@@ -54,6 +46,26 @@ def save_checkpoint(cfg, model: nn.Module, epoch: int, acc: float) -> Optional[P
     path = d / ("acc%.3f_e%d.ckpt" % (acc, epoch))
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
     return path
+
+
+def read_state_dict(path: Path) -> Dict[str, torch.Tensor]:
+    """The state_dict in ``path``: a ``torch.save`` zip of the port, or a
+    flax msgpack file of the JAX package (``{'params', 'batch_stats'}`` of
+    a stream, or the bare ``{'weight', 'bias'}`` of the sparse fusion)."""
+    path = Path(path)
+    if path.is_dir():
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory (the JAX package's "
+            "save_checkpoint(backend='orbax')); the port reads the msgpack backend's "
+            "files, save_checkpoint's default. Reading orbax needs tensorstore.")
+    with path.open("rb") as f:
+        head = f.read(4)
+    if head == _ZIP_MAGIC:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if head and flax_msgpack.is_map_header(head[0]):
+        tree = flax_msgpack.from_bytes(path.read_bytes())
+        return flax_to_torch(tree if "params" in tree else {"params": tree})
+    raise ValueError(f"{path} is neither a torch.save zip nor a flax msgpack file")
 
 
 def _latest(pattern: str) -> Optional[Path]:
@@ -80,15 +92,8 @@ def load_checkpoint(cfg, model: nn.Module,
             return Path(torch_warmstart)
         print("warning: no checkpoint found")
         return None
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
+    model.load_state_dict(read_state_dict(path))
     return path
-
-
-def delete_mismatch(state_dict: Dict) -> Dict:
-    for key in MISMATCH_LAYERS:
-        state_dict.pop(key, None)
-    return state_dict
 
 
 def load_torch_warmstart(path: Path, model: nn.Module) -> List[str]:

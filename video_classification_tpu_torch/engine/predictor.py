@@ -26,7 +26,7 @@ from ..config.defaults import load_model_cfg
 from ..models.sparse_fusion import SparseModel
 from ..pipeline.online import OnlineVideoDataset, flow_params_from_cfg, make_online_detector
 from ..utils.cuda import resolve_device
-from .checkpoint import load_checkpoint
+from .checkpoint import load_checkpoint, read_state_dict
 from .model_manager import ModelManager
 from .sparse import PART_YAMLS, fusion_ckpt_dir
 
@@ -107,8 +107,9 @@ class EnsemblePredictor:
     own per-request dataset, all given the same ``detector`` and
     ``flow_params``, fused per class. ``fusion_params`` ({'weight' (C, P),
     'bias' (C,)}) skips the checkpoint lookup; otherwise the
-    lexicographically last file of ``sparse_fusion_ckpt/`` is loaded, and
-    with none the weight and bias are all ones (uniform mixing)."""
+    lexicographically last file of ``sparse_fusion_ckpt/`` is loaded, the
+    port's ``torch.save`` or the JAX package's flax msgpack file, and with
+    none the weight and bias are all ones (uniform mixing)."""
 
     def __init__(self, part_yamls: Optional[Sequence[str]] = None,
                  cfg_overrides: Optional[List[str]] = None,
@@ -134,7 +135,7 @@ class EnsemblePredictor:
             ckpts = sorted(d.iterdir()) if d.is_dir() else []
             if ckpts:
                 print(f"loading fusion checkpoint {ckpts[-1]}")
-                state = torch.load(ckpts[-1], map_location="cpu", weights_only=True)
+                state = read_state_dict(ckpts[-1])
                 self.fusion_source = str(ckpts[-1])
             else:
                 print("warning: no sparse-fusion checkpoint; using uniform mixing")

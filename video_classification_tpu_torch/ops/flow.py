@@ -24,8 +24,9 @@ a CUDA tensor always launches the port's kernels and a CPU tensor always runs
 their plain versions.
 
 Tensors are channels-last (B, H, W, C) at the public functions, as in the
-JAX package. The pyramid's bilinear resize matches ``jax.image.resize(...,
-"linear")``, which antialiases when it downsamples.
+JAX package. The pyramid's bilinear resize computes what ``jax.image.resize(...,
+"linear")`` computes (antialiased when it downsamples): its weight matrices,
+rounded as XLA:CPU rounds them, contracted in float32.
 
 ``encode_flow_uint8`` is the on-disk encoding of the reference
 (chalearn_video_to_flow.py:79-101): U, V clipped to +-5 -> [0, 1], magnitude
@@ -34,11 +35,12 @@ sqrt((U/5)^2 + (V/5)^2)/sqrt(2), all x255 and truncated to uint8.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .flow_level import _edge_weights, _grad_xy, flow_level
 from .sor_solve import sor_solve
@@ -95,12 +97,71 @@ def _gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
     return blur_axis(blur_axis(x, 1), 2)
 
 
+# XLA:CPU (jax 0.9.0), compiling jax.image.resize, rounds an axis' sample
+# positions (i + 0.5) * (in / out) - 0.5 twice (multiply, then add) when the
+# axis has fewer than this many outputs, and once (a fused multiply-add)
+# from this many on: measured over output sizes 15-320.
+_FMA_POSITIONS_FROM = 96
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_taps(m: int, n: int, device: torch.device):
+    """The nonzero columns of ``jax/_src/image/scale.py::compute_weight_mat``
+    for a linear resize of one axis, ``m`` -> ``n`` samples, as XLA:CPU
+    computes it in float32: the triangle kernel widened by ``max(m / n, 1)``
+    when downsampling (``1 - |d| * (1 / width)`` rounded once), each column
+    divided by its sum (taken in input order), and zero where the sample
+    falls outside [-0.5, m - 0.5]. Returns (index, weight), each (k, n):
+    output j takes sum over t of weight[t, j] * x[index[t, j]]."""
+    f32 = np.float32
+    inv = f32(1.0 / (n / m))
+    width = f32(max(1.0 / (n / m), 1.0))
+    pos = np.arange(n, dtype=f32) + f32(0.5)
+    if n >= _FMA_POSITIONS_FROM:
+        sample = (pos.astype(np.float64) * float(inv) - 0.5).astype(f32)
+    else:
+        sample = (pos * inv).astype(f32) - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None])
+    if width == 1:
+        raw = f32(1) - dist
+    else:
+        raw = (1.0 - dist.astype(np.float64) * float(f32(1) / width)).astype(f32)
+    raw = np.maximum(raw, f32(0))
+    total = np.zeros(n, f32)
+    for row in raw:
+        total = total + row
+    weights = np.where(np.abs(total) > f32(1000 * np.finfo(f32).eps),
+                       raw / np.where(total != 0, total, f32(1)), f32(0))
+    weights = np.where((sample >= -0.5) & (sample <= m - 0.5), weights, f32(0))
+    nonzero = weights != 0
+    first = nonzero.argmax(axis=0)
+    k = max(int(nonzero.sum(axis=0).max()), 1)
+    rows = first[None, :] + np.arange(k)[:, None]
+    index = np.minimum(rows, m - 1)
+    taps = np.where(rows < m, np.take_along_axis(weights, index, axis=0), f32(0))
+    return (torch.from_numpy(index).to(device),
+            torch.from_numpy(taps.astype(f32)).to(device))
+
+
+def _resize_axis(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    m = x.shape[dim]
+    if m == n:
+        return x
+    index, taps = _resize_taps(m, n, x.device)
+    shape = [n if d == dim else 1 for d in range(x.dim())]
+    out = None
+    for t in range(index.shape[0]):
+        term = x.index_select(dim, index[t]) * taps[t].view(shape)
+        out = term if out is None else out + term
+    return out
+
+
 def _resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """(B, H, W, C) -> (B, h, w, C), half-pixel centres, antialiased when
-    downsampling (``jax.image.resize(..., "linear")``)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1).contiguous()
+    """(B, H, W, C) -> (B, h, w, C): ``jax.image.resize(..., "linear")``,
+    antialiased when downsampling: H, then W, each a float32 sum over the
+    few nonzero taps of the axis' weight matrix, in input order (elementwise
+    ops only, so no TF32 on the card)."""
+    return _resize_axis(_resize_axis(x, 1, hw[0]), 2, hw[1]).contiguous()
 
 
 def _pyramid_shapes(h: int, w: int, ratio: float, min_width: int):
@@ -188,11 +249,13 @@ def coarse2fine_flow(im1: torch.Tensor, im2: torch.Tensor,
     b, h, w, _ = im1.shape
     shapes = _pyramid_shapes(h, w, params.ratio, params.min_width)
 
+    # Both images' pyramids in one batch, and u and v upsampled as two
+    # channels: the blur and the resize work per image and channel, so the
+    # values are those of separate calls, in half the launches.
     sigma = (1.0 / params.ratio - 1.0) + 0.3
-    pyr1, pyr2 = [im1.contiguous()], [im2.contiguous()]
+    pyr = [torch.cat([im1, im2])]
     for hw in shapes[1:]:
-        pyr1.append(_resize_bilinear(_gaussian_blur(pyr1[-1], sigma), hw))
-        pyr2.append(_resize_bilinear(_gaussian_blur(pyr2[-1], sigma), hw))
+        pyr.append(_resize_bilinear(_gaussian_blur(pyr[-1], sigma), hw))
 
     ch, cw = shapes[-1]
     u = torch.zeros((b, ch, cw), dtype=torch.float32, device=im1.device)
@@ -202,16 +265,17 @@ def coarse2fine_flow(im1: torch.Tensor, im2: torch.Tensor,
         if (u.shape[1], u.shape[2]) != (th, tw):
             scale_x = tw / u.shape[2]
             scale_y = th / u.shape[1]
-            u = _resize_bilinear(u[..., None], (th, tw))[..., 0] * scale_x
-            v = _resize_bilinear(v[..., None], (th, tw))[..., 0] * scale_y
+            uv = _resize_bilinear(torch.stack([u, v], -1), (th, tw))
+            u, v = uv[..., 0] * scale_x, uv[..., 1] * scale_y
         u, v = u.contiguous(), v.contiguous()
+        pyr1, pyr2 = pyr[lvl][:b], pyr[lvl][b:]
         if fused:
-            u, v, _ = flow_level(pyr1[lvl], pyr2[lvl], u, v, params.n_outer,
+            u, v, _ = flow_level(pyr1, pyr2, u, v, params.n_outer,
                                  params.n_sor, params.alpha, params.omega,
                                  params.eps, params.warp_radius,
                                  params.fuse_outer_tol)
         else:
-            u, v = _flow_level_per_op(pyr1[lvl], pyr2[lvl], u, v, params)
+            u, v = _flow_level_per_op(pyr1, pyr2, u, v, params)
     return u, v
 
 

@@ -129,11 +129,28 @@ def pad_to_square_resize(img: torch.Tensor, size: int, hw) -> torch.Tensor:
     return cubic_resize(square, (size, size), in_hw=(m, m))
 
 
+def pad2x(img: torch.Tensor) -> torch.Tensor:
+    """Zero-pad (..., H, W, C) to (..., 2H, 2W, C), the content at rows
+    [H//2, H//2 + H) and columns [W//2, W//2 + W) (the reference's
+    ``pad_an_img``, chalearn_image_to_padded.py:16-22)."""
+    *lead, h, w, c = img.shape
+    out = img.new_zeros((*lead, 2 * h, 2 * w, c))
+    out[..., h // 2:h // 2 + h, w // 2:w // 2 + w, :] = img
+    return out
+
+
 def normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 -> ((x/255) - 0.45) / 0.225 in ``dtype``."""
     x = x.to(torch.float32)
     out = (x * (1.0 / 255.0) - NORM_MEAN) * (1.0 / NORM_STD)
     return out.to(dtype)
+
+
+def denormalize_to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``normalize``: (x * 0.225 + 0.45) * 255, rounded half
+    to even and clipped to [0, 255], as uint8."""
+    v = (x.to(torch.float32) * NORM_STD + NORM_MEAN) * 255.0
+    return torch.clamp(torch.round(v), 0, 255).to(torch.uint8)
 
 
 def random_crop_offsets(n: int, h: int, w: int, size: int, padding: int,

@@ -25,7 +25,7 @@ from ..config.crop_cfg import crop_part_args, crop_resize_dict
 from ..data.dataset import MISSING_FILL
 from ..ops.components import MIN_PART_SIZE, largest_component_bbox, part_mask
 from ..ops.flow import DEFAULT_PARAMS, FlowParams, video_flow_uint8
-from ..ops.image import pad_to_square_resize, shift2d
+from ..ops.image import pad2x, pad_to_square_resize, shift2d
 
 
 class Detections(NamedTuple):
@@ -35,14 +35,6 @@ class Detections(NamedTuple):
     valid: torch.Tensor       # (S,) bool
     charts: torch.Tensor      # (S, hm, hm) int32, 0..24
     uv: torch.Tensor          # (S, 2, hm, hm) float32 in [0, 1]
-
-
-def _pad2x_batch(x: torch.Tensor) -> torch.Tensor:
-    """(T, H, W, ...) -> (T, 2H, 2W, ...), content at rows [H//2, H//2+H)."""
-    t, h, w = x.shape[:3]
-    out = x.new_zeros((t, 2 * h, 2 * w) + tuple(x.shape[3:]))
-    out[:, h // 2:h // 2 + h, w // 2:w // 2 + w] = x
-    return out
 
 
 def _resize_uv_to_canvas(uv: torch.Tensor, bh: torch.Tensor, bw: torch.Tensor,
@@ -165,10 +157,10 @@ def preprocess_clip_on_device(
         offsets = torch.arange(-interval + 1, 1, device=dev)
         flow_idx = torch.clamp(sampled[:, None] + offsets[None, :], min=0)  # (S, 5)
         s = sampled.shape[0]
-        flow_pad = _pad2x_batch(flow_images[flow_idx.reshape(-1)])
+        flow_pad = pad2x(flow_images[flow_idx.reshape(-1)])
         flow_pad = flow_pad.reshape(s, interval, *flow_pad.shape[1:])
         canvas, bh, bw = _build_body_canvas(
-            _pad2x_batch(frames_bgr[sampled]), _pad2x_batch(frames_depth[sampled]),
+            pad2x(frames_bgr[sampled]), pad2x(frames_depth[sampled]),
             flow_pad, detections.boxes_xyxy, detections.uv, canvas_hw)
         outs = {}
         det_ok = detections.valid

@@ -38,3 +38,14 @@ def write_labels(cfg, name_of_set: str, labels: List[LabelEntry]) -> Path:
     with txt.open("w") as f:
         f.writelines(f"{m} {k} {l}\n" for (m, k, l) in labels)
     return txt
+
+
+class Labels:
+    """A label reader bound to a config (the reference's utils/chalearn.py:19-35)."""
+
+    def __init__(self, cfg) -> None:
+        self.cfg = cfg
+        self.sample_root = Path(cfg.CHALEARN.ROOT, cfg.CHALEARN.SAMPLE)
+
+    def from_set(self, name_of_set: str) -> List[LabelEntry]:
+        return get_labels(self.cfg, name_of_set)

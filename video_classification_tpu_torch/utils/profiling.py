@@ -1,10 +1,14 @@
-"""Wall time per named stage, synchronised with the device."""
+"""Profiling: wall time per named stage synchronised with the device
+(``StageTimer``), step statistics (``StepTimer``) and a device trace
+(``trace``)."""
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
+from typing import List, Optional
 
 import torch
 
@@ -31,3 +35,50 @@ class StageTimer:
         finally:
             self._sync()
             self.seconds[name] += time.perf_counter() - t0
+
+
+@contextmanager
+def trace(logdir):
+    """``with trace('logs/profile') as prof: run_steps()``: a
+    ``torch.profiler`` trace of the CPU and, where there is one, the card,
+    written as a Chrome trace (``trace.json``) into ``logdir``."""
+    logdir = Path(logdir)
+    logdir.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(logdir / "trace.json"))
+
+
+class StepTimer:
+    """``with timer: step()`` records each step's wall time; ``times``,
+    ``mean`` and ``throughput`` leave out the first ``warmup`` steps. The
+    caller synchronises the device inside the step if its time should
+    include the device's work."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self._all: List[float] = []
+        self._t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._all.append(time.perf_counter() - self._t0)
+        return False
+
+    @property
+    def times(self) -> List[float]:
+        return self._all[self.warmup:]
+
+    @property
+    def mean(self) -> float:
+        ts = self.times
+        return sum(ts) / len(ts) if ts else float("nan")
+
+    def throughput(self, items_per_step: int) -> float:
+        return items_per_step / self.mean if self.times else float("nan")
