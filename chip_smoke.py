@@ -51,7 +51,8 @@ Phases, each fatal on failure:
      beside its host-paced time and its bound;
   8. the synthetic-detector serving code at a small size on the card and on
      the CPU (plain versions), same frames and weights: clips within uint8
-     +-1 on >= 99.9 %, scores within 5e-3;
+     +-1 on >= 99.9 %, scores within 5e-3 (from here on the CPU's flow of
+     the same frames and parameters is computed once, memoize_cpu_flow);
   9. the DensePose-detector serving code at a small size (depth 50, pooler
      14, float32) on the card and on the CPU, same frames and weights:
      detections at the CPU tests' bars, then clips and scores as in 8;
@@ -60,10 +61,13 @@ Phases, each fatal on failure:
      cold (zero) and warm (random) starts, on random systems at the edge
      shapes and sweep counts of 3, cold and warm, then the 101-pair serving
      batch (timed, with the half-sweeps per launch and time per half-sweep);
- 11. K5 warp_bilinear against its plain version at every level shape, on
-     flows within, at and far past +-8 px, integer flows and flows across
-     the border (max abs error <= 1e-6), then the 101x240x320x3 serving
-     batch, timed beside F.grid_sample (the library yardstick);
+     K1's and K4's times beside theirs before the multiply-adds were fused
+     as XLA:CPU fuses them (MS_BEFORE_FMA), with the card's name and limit;
+ 11. K5 warp_bilinear bit-equal to its plain version, both orders of its
+     first fused multiply-add, at every level shape, on flows within, at
+     and far past +-8 px, integer flows and flows across the border, then
+     the 101x240x320x3 serving batch, timed beside F.grid_sample (the
+     library yardstick);
  12. K6 label_components against its plain version, exactly: part masks at
      56x56 and 112x112, random masks, a serpentine, rounds cut at 1 / 3 /
      7; the strip-boundary shapes (1xW, Hx1, 13x17, 57x76, 112x112, 240x320
@@ -75,9 +79,9 @@ Phases, each fatal on failure:
      (tests/goldens; frames regenerated by numpy copies of the golden
      tests' generators): the sinusoid 240x320 and natural 96x128 at +-1 on
      >= 99.9 %, the natural 240x320 at +-2 on >= 99.5 % beyond 8 px of the
-     border (the whole-frame fraction is logged); the natural 240x320 on the
-     per-op and the fused path within +-1 and +-2, whole frame and beyond
-     8 px, logged;
+     border and, on the per-op path, on >= NATURAL_WHOLE_FRAME_PM2 of the
+     whole frame; the natural 240x320 on the per-op and the fused path
+     within +-1 and +-2, whole frame and beyond 8 px, logged;
  14. slowfast-HTAH served at full width as in 6 with
      FlowParams(fuse_level="off"): K4, K5 and K2 must launch, K1 and K6
      must not;
@@ -265,9 +269,23 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 FLOW_FRAC = 0.999
 SCORE_ATOL = 5e-3
+# The natural 240x320 golden over the whole frame, within +-2, on the per-op
+# path: tests/test_torch_port_flow_per_op.py's NATURAL_WHOLE_FRAME_PM2.
+NATURAL_WHOLE_FRAME_PM2 = 0.99336
+# K1's and K4's ms at 101 pairs of 240x320 before their multiply-adds were
+# fused as XLA:CPU fuses them (PERF.md §6's figures for the SOR tiles'
+# version, H100 80GB HBM3, 700 W); [10] logs this run's beside them.
+MS_BEFORE_FMA = {"flow_level": 25.11, "sor_solve": 3.024}
+
+
+_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print msg; a phase's heading ("[n] ...") gets the seconds since the
+    script started, so that each phase's share of the time limit shows."""
+    if msg[:1] == "[" and msg[1:2].isdigit():
+        msg = f"{msg} (at {time.perf_counter() - _START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -435,9 +453,10 @@ def check_flow_level(dev, pyramids):
 
     worst = [0.0]
 
-    def exact(what, *call):
+    def exact(what, *call, plain=None):
         worst[0] = max(worst[0], require_equal(
-            f"K1 {what}", flow_level(*call), flow_level_reference(*call)))
+            f"K1 {what}", flow_level(*call),
+            flow_level_reference(*call) if plain is None else plain))
         log(f"  K1 {what}: bit-equal (u, v, mx)")
 
     for lvl, (h, w) in enumerate(shapes):
@@ -455,10 +474,10 @@ def check_flow_level(dev, pyramids):
     for lvl, (h, w) in enumerate(shapes):
         a1, a2 = serving_batch(pyr1, lvl), serving_batch(pyr2, lvl)
         z = torch.zeros((b, h, w), device=dev)
-        exact(f"{h}x{w} x{b}, zero start", a1, a2, z, z, p.n_outer, *args)
-        ms = cuda_ms(lambda: flow_level(a1, a2, z, z, p.n_outer, *args))
-        _, plain_ms = cuda_call_ms(
+        plain, plain_ms = cuda_call_ms(
             lambda: flow_level_reference(a1, a2, z, z, p.n_outer, *args))
+        exact(f"{h}x{w} x{b}, zero start", a1, a2, z, z, p.n_outer, *args, plain=plain)
+        ms = cuda_ms(lambda: flow_level(a1, a2, z, z, p.n_outer, *args))
         outers = int(executed_outers(
             lambda k: flow_level(a1, a2, z, z, k, *args), p.n_outer).sum())
         ops = outers * h * w * flow_ops_per_pixel_outer(3, p.n_sor)
@@ -906,9 +925,10 @@ def check_sor_solve(dev, pyramids):
 
     worst = [0.0]
 
-    def exact(what, args):
+    def exact(what, args, plain=None):
         worst[0] = max(worst[0], require_equal(
-            f"K4 {what}", sor_solve(*args), sor_solve_reference(*args)))
+            f"K4 {what}", sor_solve(*args),
+            sor_solve_reference(*args) if plain is None else plain))
         log(f"  K4 {what}: bit-equal")
 
     def level_args(ix, iy, it, u, v, du0, dv0):
@@ -936,9 +956,9 @@ def check_sor_solve(dev, pyramids):
         terms = _outer_terms(serving_batch(pyr1, lvl), serving_batch(pyr2, lvl), z, z)
         args = level_args(*terms, z, z, z, z)
         del terms
-        exact(f"{h}x{w} x{b}, zero flow", args)
+        plain, plain_ms = cuda_call_ms(lambda: sor_solve_reference(*args))
+        exact(f"{h}x{w} x{b}, zero flow", args, plain)
         ms = cuda_ms(lambda: sor_solve(*args))
-        _, plain_ms = cuda_call_ms(lambda: sor_solve_reference(*args))
         bound_ms, bound_by = bound(b * h * w * sor_ops_per_pixel(p.n_sor),
                                    15 * b * h * w * 4)
         sched = sor_schedule_row(lambda n: sor_solve(*args[:11], n, *args[12:]),
@@ -952,9 +972,10 @@ def check_sor_solve(dev, pyramids):
 
 
 def check_warp(dev, pyramids):
-    """K5 against its plain version at every level on flows within, at and
-    far past +-8 px, integer flows and flows across the border; then the
-    101-pair serving batch at 240x320, timed, beside F.grid_sample."""
+    """K5 bit-equal to its plain version, both orders of its first fused
+    multiply-add, at every level on flows within, at and far past +-8 px,
+    integer flows and flows across the border; then the 101-pair serving
+    batch at 240x320, timed, beside F.grid_sample."""
     import torch
     import torch.nn.functional as F
 
@@ -965,10 +986,8 @@ def check_warp(dev, pyramids):
     max_err = 0.0
 
     def exact(what, im, u, v):
-        err = float((warp_bilinear(im, u, v) - warp_bilinear_reference(im, u, v)).abs().max())
-        if err > 1e-6:
-            raise AssertionError(f"K5 {what}: max |kernel - plain| {err}")
-        return err
+        return require_equal(f"K5 {what}", warp_bilinear(im, u, v, both_orders=True),
+                             warp_bilinear_reference(im, u, v, both_orders=True))
 
     for lvl, (h, w) in enumerate(shapes):
         im = pyr2[lvl]
@@ -987,8 +1006,7 @@ def check_warp(dev, pyramids):
         errs = {k: exact(f"{h}x{w} {k}", im, u.contiguous(), v.contiguous())
                 for k, (u, v) in cases.items()}
         max_err = max(max_err, *errs.values())
-        log(f"  K5 {h}x{w} x4: max |kernel - plain| "
-            + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+        log(f"  K5 {h}x{w} x4: bit-equal, both orders ({', '.join(errs)})")
 
     b, (h, w) = SERVING_PAIRS, shapes[0]
     im = serving_batch(pyr2, 0)
@@ -1196,6 +1214,10 @@ def check_goldens(dev):
                for where, d in (("whole", diff), ("inner8", diff[:, inner]))}
         log(f"  flow_natural_240x320, {path} path: {json.dumps(row)}")
         out[f"flow_natural_240x320_{path}"] = row
+    per_op = out["flow_natural_240x320_per-op"]["pm2_whole"]
+    if per_op < NATURAL_WHOLE_FRAME_PM2:
+        raise AssertionError(f"flow_natural_240x320, per-op path: {per_op} within +-2 "
+                             f"over the whole frame < {NATURAL_WHOLE_FRAME_PM2}")
     return out
 
 
@@ -1302,6 +1324,34 @@ def check_detections(dets, padded_hw):
     labels = sorted(set().union(*(set(d.charts.unique().tolist()) for d in dets)))
     log(f"  detections: {frames} frames, {valid} valid, "
         f"{dets[0].charts.shape[-1]}x{dets[0].charts.shape[-1]} charts, labels {labels}")
+
+
+def memoize_cpu_flow() -> None:
+    """Compute the CPU's flow of given frames and parameters once.
+
+    The card-vs-CPU checks [8], [9], [15] and [22] run the CPU's plain flow
+    on the same 34 small frames many times (each Predictor's clips and
+    scores, the five streams of the ensemble), and the plain flow is slow:
+    it computes each of XLA:CPU's fused multiply-adds exactly in float64
+    (ops/fma.py). Every CPU call of pipeline/device_pipeline's flow after
+    the first on the same frames and parameters returns a copy of the first
+    call's result; card tensors are untouched."""
+    import hashlib
+
+    from video_classification_tpu_torch.pipeline import device_pipeline
+
+    flow, memo = device_pipeline.video_flow_uint8, {}
+
+    def memoized(frames, params):
+        if frames.device.type != "cpu":
+            return flow(frames, params)
+        key = (hashlib.sha1(frames.contiguous().numpy().tobytes()).hexdigest(),
+               tuple(frames.shape), str(frames.dtype), params)
+        if key not in memo:
+            memo[key] = flow(frames, params)
+        return memo[key].clone()
+
+    device_pipeline.video_flow_uint8 = memoized
 
 
 def serve_small_against_cpu(dev, root: str, **flow):
@@ -1685,7 +1735,7 @@ calls = {
         torch.zeros((1, 65535, 1), dtype=torch.bool, device=d), 8),
     "nms": lambda: ext.nms(torch.zeros((1, 20000, 4), device=d),
                            torch.zeros((1, 19999), device=d), 4, 0.5),
-    "warp_bilinear": lambda: ext.warp_bilinear(im, z[:, :4], z),
+    "warp_bilinear": lambda: ext.warp_bilinear(im, z[:, :4], z, True),
     "label_components": lambda: ext.label_components(torch.zeros((8, 8), device=d), 8),
 }
 try:
@@ -3545,6 +3595,7 @@ def main() -> int:
         absent=per_op)
     check_detections(seen, (480, 640))
     k3_box_head = time_box_head_nms(calls)
+    memoize_cpu_flow()
     log("[8] small serve: card vs cpu")
     serve_small_against_cpu(dev, root)
     log("[9] small DensePose-detector serve: card vs cpu")
@@ -3552,6 +3603,10 @@ def main() -> int:
 
     log("[10] K4 sor_solve vs plain")
     k4 = check_sor_solve(dev, pyramids)
+    log("  K1, K4 at 101 pairs of 240x320 with XLA:CPU's fused multiply-adds: "
+        + ", ".join(f"{n} {k['ms']} ms (before: {MS_BEFORE_FMA[n]} ms)"
+                    for n, k in (("flow_level", k1), ("sor_solve", k4)))
+        + f"; {smi}")
     log("[11] K5 warp_bilinear vs plain")
     k5 = check_warp(dev, pyramids)
     del pyramids

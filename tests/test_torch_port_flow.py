@@ -170,15 +170,23 @@ def _border_distance(h, w):
     return np.minimum(np.minimum(yy, h - 1 - yy), np.minimum(xx, w - 1 - xx))
 
 
+# Whole-frame fraction of the fused port within +-1 of the interpreted
+# Pallas kernel on the natural 240x320 frames (0.993623 on the CPU), less
+# 0.1 %: the levels part only through the rsqrt of psi and phi, the
+# pyramids through the resize's rounding, and both grow along the border of
+# that periodic texture.
+FUSED_WHOLE_FRAME_PM1 = 0.99262
+
+
 def test_video_flow_natural_240x320_matches_fused_pallas():
     """The natural-statistics 240x320 golden was made by the XLA path; K1
     keeps the fused-level Pallas kernel's semantics (the +-8 px warp clamp),
     which depart from it where the solve diverges along the border of this
     periodic texture. So the port is held against the interpreted Pallas
     kernel on the same frames (the repo's +-1 / 99.9 % bar away from the
-    border), and against the golden at the golden's own bar (+-2 / 99.5 %)
-    away from the border and no worse than the Pallas kernel over the whole
-    frame."""
+    border, +-1 on FUSED_WHOLE_FRAME_PM1 of the whole frame), and against
+    the golden at the golden's own bar (+-2 / 99.5 %) away from the border
+    and no worse than the Pallas kernel over the whole frame."""
     frames = make_natural_frames()
     want = np.load(GOLDENS / "flow_natural_240x320.npz")["flow_images"].astype(np.int32)
     fused = np.asarray(jflow.video_flow_uint8(
@@ -190,6 +198,7 @@ def test_video_flow_natural_240x320_matches_fused_pallas():
     assert got.shape == fused.shape == want.shape == (3, 240, 320, 3)
     inner = _border_distance(240, 320) >= 8
     _uint8_within(got[:, inner], fused[:, inner], 0.999, 1)
+    _uint8_within(got, fused, FUSED_WHOLE_FRAME_PM1, 1)
     _uint8_within(got[:, inner], want[:, inner], 0.995, 2)
     port_frac = float((np.abs(got - want) <= 2).mean())
     fused_frac = float((np.abs(fused - want) <= 2).mean())

@@ -32,9 +32,12 @@ from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDENS = Path(__file__).parent / "goldens"
 # Whole-frame fraction of the natural 240x320 golden within +-2 that the
-# per-op path reaches on the CPU (0.99435), less 0.1 %: the solve diverges
-# along the border of that periodic texture (ROADMAP.md queue 3).
-NATURAL_WHOLE_FRAME_PM2 = 0.99335
+# per-op path reaches on the CPU (0.994369, with XLA:CPU's fused
+# multiply-adds), less 0.1 %. The solve diverges along the border of that
+# periodic texture, where any rounding difference grows: the JAX package's
+# own XLA path reaches 0.998209 compiled as one program and 0.994887
+# compiled level by level (tests/flow_natural_parity.py; ROADMAP.md queue 3).
+NATURAL_WHOLE_FRAME_PM2 = 0.99336
 
 
 def _jax_params(**kw):

@@ -3,7 +3,8 @@
 K4 (``csrc/sor_solve.cu``) and K1's SOR (``csrc/flow_level.cu``) run their
 red-black half-sweeps in shared-memory tiles. The kernels run only on the
 card; this file replays their schedule with plain tensor ops and the plain
-twin's arithmetic, with the numbers of ``ops/sor_solve.py`` (``TILE``,
+twin's arithmetic (its fused multiply-adds: ``hoisted``, ``weighted_sum``,
+``relax``), with the numbers of ``ops/sor_solve.py`` (``TILE``,
 ``HALF_SWEEPS``, ``whole_frame``), and holds the stitched result
 ``torch.equal`` to ``sor_solve_reference``:
 
@@ -39,8 +40,8 @@ import torch
 from torch.utils._cpp_extension_versioner import ExtensionVersioner
 
 from video_classification_tpu_torch.ops.sor_solve import (
-    HALF_SWEEPS, SCHEDULE, TILE, _neighbour, check_tileable, sor_solve,
-    sor_solve_reference, whole_frame)
+    HALF_SWEEPS, SCHEDULE, TILE, check_tileable, hoisted, relax, sor_solve,
+    sor_solve_reference, weighted_sum, whole_frame)
 from video_classification_tpu_torch.utils import cuda
 from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
 
@@ -104,9 +105,8 @@ def _window_neighbour(f, ws, window, h, w):
     if x1 == w:
         pad[:, :, -1] = 0.0
     pad[:, 1:-1, 1:-1] = f
-    wu, wd, wl, wr = ws
-    return (wu * pad[:, :-2, 1:-1] + wd * pad[:, 2:, 1:-1]
-            + wl * pad[:, 1:-1, :-2] + wr * pad[:, 1:-1, 2:])
+    return weighted_sum(*ws, pad[:, :-2, 1:-1], pad[:, 2:, 1:-1],
+                        pad[:, 1:-1, :-2], pad[:, 1:-1, 2:])
 
 
 def _run_tile(fields, du, dv, window, first, n, h, w):
@@ -123,11 +123,11 @@ def _run_tile(fields, du, dv, window, first, n, h, w):
             & ((cols >= x0 + d) | (x0 == 0)) & ((cols < x1 - d) | (x1 == w))
         mask = (colour == (first + j) % 2) & region
         su = nuc + _window_neighbour(du, ws, window, h, w)
-        new_du = (b1 - a12 * dv + ALPHA * su) * inv_u
-        du = torch.where(mask, (1 - OMEGA) * du + OMEGA * new_du, du)
+        du = torch.where(mask, relax(du, dv, b1, a12, su, inv_u, ALPHA, OMEGA),
+                         du)
         sv = nvc + _window_neighbour(dv, ws, window, h, w)
-        new_dv = (b2 - a12 * du + ALPHA * sv) * inv_v
-        dv = torch.where(mask, (1 - OMEGA) * dv + OMEGA * new_dv, dv)
+        dv = torch.where(mask, relax(dv, du, b2, a12, sv, inv_v, ALPHA, OMEGA),
+                         dv)
     return du, dv
 
 
@@ -136,11 +136,7 @@ def tiled_solve(a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v, n_sor, du0, dv0,
     """The kernels' schedule. With zero_start_in_buffers (K1), the start is
     written into the buffer that is not the first destination."""
     _, h, w = a11.shape
-    wsum = wu + wd + wl + wr
-    inv_u = 1.0 / (a11 + ALPHA * wsum)
-    inv_v = 1.0 / (a22 + ALPHA * wsum)
-    nuc = _neighbour(u, wu, wd, wl, wr) - wsum * u
-    nvc = _neighbour(v, wu, wd, wl, wr) - wsum * v
+    inv_u, inv_v, nuc, nvc = hoisted(a11, a22, wu, wd, wl, wr, u, v, ALPHA)
     coeffs = (a12, b1, b2, wu, wd, wl, wr, inv_u, inv_v, nuc, nvc)
 
     tiles, per_launch = _tiles(h, w)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device times of the component kernels, K2 (component_extents) and K6
-(label_components), of one checkout of the port on one NVIDIA GPU, so that
-two checkouts can be compared in one call.
+(label_components), or with --flow of the flow kernels, K1 (flow_level) and
+K4 (sor_solve), of one checkout of the port on one NVIDIA GPU, so that two
+checkouts can be compared in one call.
 
-    python3 time_components.py [ROOT]
+    python3 time_components.py [--flow] [ROOT]
 
 Imports video_classification_tpu_torch from ROOT (default: this checkout),
 builds its kernels there, and times them with CUDA events by this
@@ -16,7 +17,11 @@ mask's executed iterations and the time per dependent iteration:
       the CropHTAH masks of the DensePose detector's own 112x112 charts from
       one full-width run (depth 101, seeded random weights) on one clip's 20
       padded frames (the serving batch); the six crop streams' part masks of
-      that run's first chart nearest-resized to 240x320 and 480x640.
+      that run's first chart nearest-resized to 240x320 and 480x640;
+  K1: one fused level of the serving batch (101 coherent-motion pairs of
+      240x320, zero flow, 7 outers of 30 sweeps);
+  K4: the per-op solve of the same batch (the first outer's coefficients,
+      30 sweeps from zero).
 
 Every case is first held exactly to the plain version. A checkout without
 the wide words (its K2 binding refuses masks past 255 px a side) prints
@@ -35,7 +40,38 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
+def time_flow(cs, dev) -> None:
+    """K1 and K4 on the serving batch at 240x320, each held bit-equal to its
+    plain version first."""
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import (
+        FlowParams, _normal_equations, _outer_terms)
+    from video_classification_tpu_torch.ops.flow_level import (
+        flow_level, flow_level_reference)
+    from video_classification_tpu_torch.ops.sor_solve import (
+        sor_solve, sor_solve_reference)
+
+    p = FlowParams()
+    _, pyr1, pyr2, _ = cs.flow_pyramids(dev)
+    a1, a2 = cs.serving_batch(pyr1, 0), cs.serving_batch(pyr2, 0)
+    del pyr1, pyr2
+    z = torch.zeros(a1.shape[:3], device=dev)
+    k1 = (a1, a2, z, z, p.n_outer, p.n_sor, p.alpha, p.omega, p.eps, p.warp_radius,
+          p.fuse_outer_tol)
+    cs.require_equal("K1", flow_level(*k1), flow_level_reference(*k1))
+    k4 = (*_normal_equations(*_outer_terms(a1, a2, z, z), z, z, z, z, p.eps), z, z,
+          p.n_sor, p.alpha, p.omega)
+    cs.require_equal("K4", sor_solve(*k4), sor_solve_reference(*k4))
+    batch = "x".join(map(str, a1.shape))
+    for name, fn, args in (("K1", flow_level, k1), ("K4", sor_solve, k4)):
+        cs.log(json.dumps({"kernel": name, "batch": batch, "bit_equal_to_plain": True,
+                           "ms": round(cs.cuda_ms(lambda: fn(*args)), 4)}))
+
+
 def main(argv) -> int:
+    flow = "--flow" in argv
+    argv = [a for a in argv if a != "--flow"]
     root = Path(argv[1]).resolve() if len(argv) > 1 else HERE
     sys.path.insert(0, str(root))
     import numpy as np
@@ -61,6 +97,10 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     cs.log(f"package {Path(port.__file__).parent}")
     ext = build()
+    if flow:
+        time_flow(cs, dev)
+        print(cs.nvidia_smi())
+        return 0
 
     def route(name, h, w):
         fn = getattr(ext, f"{name}_route", None)

@@ -44,8 +44,8 @@ cudaError_t sor_solve_launch(const float* const* fields, float* scratch,
                              int n_sor, float alpha, float omega,
                              float one_m_omega, cudaStream_t st);
 cudaError_t warp_bilinear_launch(const float* im, const float* u,
-                                 const float* v, float* out, int B, int H,
-                                 int W, int C, cudaStream_t st);
+                                 const float* v, float* out, float* out_right,
+                                 int B, int H, int W, int C, cudaStream_t st);
 int label_components_route(int H, int W);
 int64_t label_components_scratch_bytes(int B, int H, int W);
 cudaError_t label_components_launch(const uint8_t* masks, int32_t* out,
@@ -222,10 +222,12 @@ std::vector<torch::Tensor> sor_solve(
   return {du, dv};
 }
 
-// See ops/warp.py::warp_bilinear.
-torch::Tensor warp_bilinear(const torch::Tensor& im_in,
-                            const torch::Tensor& u_in,
-                            const torch::Tensor& v_in) {
+// [warped] or, with both_orders, [warped, warped_right]: see
+// ops/warp.py::warp_bilinear.
+std::vector<torch::Tensor> warp_bilinear(const torch::Tensor& im_in,
+                                         const torch::Tensor& u_in,
+                                         const torch::Tensor& v_in,
+                                         bool both_orders) {
   const auto im = cuda_f32(im_in, "im");
   const auto u = cuda_f32(u_in, "u"), v = cuda_f32(v_in, "v");
   TORCH_CHECK(im.dim() == 4, "im must be (B, H, W, C)");
@@ -236,11 +238,13 @@ torch::Tensor warp_bilinear(const torch::Tensor& im_in,
               "u, v must be (B, H, W)");
   TORCH_CHECK(B * H * W * C < (int64_t{1} << 31), "B*H*W*C must be < 2**31");
   const c10::cuda::CUDAGuard guard(im.device());
-  auto out = torch::empty_like(im);
-  check_launch(warp_bilinear_launch(im.data_ptr<float>(), u.data_ptr<float>(),
-                                    v.data_ptr<float>(), out.data_ptr<float>(),
-                                    B, H, W, C,
-                                    at::cuda::getCurrentCUDAStream()),
+  std::vector<torch::Tensor> out{torch::empty_like(im)};
+  if (both_orders) out.push_back(torch::empty_like(im));
+  check_launch(warp_bilinear_launch(
+                   im.data_ptr<float>(), u.data_ptr<float>(),
+                   v.data_ptr<float>(), out[0].data_ptr<float>(),
+                   both_orders ? out[1].data_ptr<float>() : nullptr, B, H, W,
+                   C, at::cuda::getCurrentCUDAStream()),
                "warp_bilinear");
   return out;
 }

@@ -7,7 +7,7 @@
 // im2 by (u, v) with offsets clamped to +-r, r = clip(ceil(max|flow|), 1,
 // r_cap) taken per pair from that outer's pre-clamp max, and the base corner
 // clamped to (h-2, w-2); IRLS data terms from the gradient of
-// 0.5*(im1 + warped) with psi = 1/sqrt(it^2 + eps); Charbonnier half-point
+// 0.5*(im1 + warped) with psi = rsqrt(it^2 + eps); Charbonnier half-point
 // edge weights, zero across the border; n_sor red-black SOR sweeps on
 // (du, dv) from zero, with the reciprocal diagonals and the constant
 // total-flow smoothness term hoisted out of the sweeps. A pair stops once an
@@ -33,8 +33,12 @@
 // half-sweeps at 240x320 (before: 15 fields per half-sweep), and the
 // half-sweeps read 12 shared-memory words per updated pixel.
 //
-// Built with -fmad=false: every product and sum is rounded as in the plain
-// PyTorch twin (ops/flow_level.py::flow_level_reference), in the same order.
+// Built with -fmad=false, so nvcc contracts nothing on its own: the fused
+// multiply-adds are the __fmaf_rn of the plain PyTorch twin's fma_f32
+// (ops/flow_level.py::flow_level_reference, XLA:CPU's contractions of the
+// Pallas kernel), psi and phi are the correctly rounded __frsqrt_rn of its
+// rsqrt_f32, and every other product and sum is rounded as there, in the
+// same order.
 
 #include <cuda_runtime.h>
 
@@ -140,11 +144,13 @@ __global__ void __launch_bounds__(kThreads) warp_phi_kernel(Level L, int k) {
   const float* im2 = L.im2 + base * C;
   const size_t c00 = ((size_t)y0 * W + x0) * C;
   const size_t c10 = c00 + (size_t)W * C;
+  // The select-shift sum of the Pallas kernel: its nonzero terms, the four
+  // corners, each fused into the running sum.
   for (int c = 0; c < C; ++c) {
     float acc = im2[c00 + c] * w00;
-    acc = acc + im2[c00 + C + c] * w01;
-    acc = acc + im2[c10 + c] * w10;
-    acc = acc + im2[c10 + C + c] * w11;
+    acc = __fmaf_rn(im2[c00 + C + c], w01, acc);
+    acc = __fmaf_rn(im2[c10 + c], w10, acc);
+    acc = __fmaf_rn(im2[c10 + C + c], w11, acc);
     L.warped[i * C + c] = acc;
   }
 
@@ -154,8 +160,9 @@ __global__ void __launch_bounds__(kThreads) warp_phi_kernel(Level L, int k) {
   const float uy = 0.5f * (u[yp * W + x] - u[ym * W + x]);
   const float vx = 0.5f * (v[y * W + xp] - v[y * W + xm]);
   const float vy = 0.5f * (v[yp * W + x] - v[ym * W + x]);
-  const float mag = ux * ux + uy * uy + vx * vx + vy * vy;
-  field(L, PHI)[i] = 1.f / sqrtf(mag + L.eps);
+  const float mag =
+      __fmaf_rn(vy, vy, __fmaf_rn(vx, vx, __fmaf_rn(ux, ux, uy * uy)));
+  field(L, PHI)[i] = __frsqrt_rn(mag + L.eps);
 }
 
 // IRLS data terms, edge weights, hoisted reciprocals and constant terms, and
@@ -183,12 +190,13 @@ __global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k,
     const float ix = 0.5f * (mxp - mxm);
     const float iy = 0.5f * (myp - mym);
     const float it = wp[q] - im1[q];
-    const float psi = 1.f / sqrtf(it * it + L.eps);
-    a11 = a11 + psi * ix * ix;
-    a12 = a12 + psi * ix * iy;
-    a22 = a22 + psi * iy * iy;
-    b1 = b1 - psi * ix * it;
-    b2 = b2 - psi * iy * it;
+    const float psi = __frsqrt_rn(__fmaf_rn(it, it, L.eps));
+    const float px = psi * ix, py = psi * iy;
+    a11 = __fmaf_rn(px, ix, a11);
+    a12 = __fmaf_rn(px, iy, a12);
+    a22 = __fmaf_rn(py, iy, a22);
+    b1 = __fmaf_rn(-px, it, b1);
+    b2 = __fmaf_rn(-py, it, b2);
   }
 
   const float* phi = field(L, PHI) + base;
@@ -205,8 +213,9 @@ __global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k,
   const float u_lf = x > 0 ? u[p - 1] : 0.f, u_rt = x < W - 1 ? u[p + 1] : 0.f;
   const float v_up = y > 0 ? v[p - W] : 0.f, v_dn = y < H - 1 ? v[p + W] : 0.f;
   const float v_lf = x > 0 ? v[p - 1] : 0.f, v_rt = x < W - 1 ? v[p + 1] : 0.f;
-  const float nu = wu * u_up + wd * u_dn + wl * u_lf + wr * u_rt;
-  const float nv = wu * v_up + wd * v_dn + wl * v_lf + wr * v_rt;
+  using sor_tiles::weighted_sum;
+  const float nu = weighted_sum(wu, wd, wl, wr, u_up, u_dn, u_lf, u_rt);
+  const float nv = weighted_sum(wu, wd, wl, wr, v_up, v_dn, v_lf, v_rt);
 
   field(L, A12)[i] = a12;
   field(L, B1)[i] = b1;
@@ -215,10 +224,10 @@ __global__ void __launch_bounds__(kThreads) coeff_kernel(Level L, int k,
   field(L, WD)[i] = wd;
   field(L, WL)[i] = wl;
   field(L, WR)[i] = wr;
-  field(L, INVU)[i] = 1.f / (a11 + L.alpha * wsum);
-  field(L, INVV)[i] = 1.f / (a22 + L.alpha * wsum);
-  field(L, NUC)[i] = nu - wsum * u[p];
-  field(L, NVC)[i] = nv - wsum * v[p];
+  field(L, INVU)[i] = sor_tiles::inv_diagonal(a11, L.alpha, wsum);
+  field(L, INVV)[i] = sor_tiles::inv_diagonal(a22, L.alpha, wsum);
+  field(L, NUC)[i] = sor_tiles::smoothness_constant(nu, wsum, u[p]);
+  field(L, NVC)[i] = sor_tiles::smoothness_constant(nv, wsum, v[p]);
   field(L, zero)[i] = 0.f;
   field(L, zero + 1)[i] = 0.f;
 }

@@ -29,8 +29,10 @@
 // frame per 12 half-sweeps at 240x320 (before: 15 fields per half-sweep), and
 // 12 shared-memory words per updated pixel.
 //
-// Built with -fmad=false: every product and sum is rounded as in the plain
-// PyTorch twin (ops/sor_solve.py::sor_solve_reference), in the same order.
+// Built with -fmad=false, so nvcc contracts nothing on its own: the fused
+// multiply-adds are the __fmaf_rn of the plain PyTorch twin's fma_f32
+// (ops/sor_solve.py::sor_solve_reference, XLA:CPU's contractions), every
+// other product and sum is rounded as there, in the same order.
 
 #include <cuda_runtime.h>
 
@@ -62,12 +64,13 @@ __global__ void __launch_bounds__(kThreads) sor_solve_setup_kernel(Setup S) {
   const float u_lf = x > 0 ? u[p - 1] : 0.f, u_rt = x < W - 1 ? u[p + 1] : 0.f;
   const float v_up = y > 0 ? v[p - W] : 0.f, v_dn = y < H - 1 ? v[p + W] : 0.f;
   const float v_lf = x > 0 ? v[p - 1] : 0.f, v_rt = x < W - 1 ? v[p + 1] : 0.f;
-  const float nu = wu * u_up + wd * u_dn + wl * u_lf + wr * u_rt;
-  const float nv = wu * v_up + wd * v_dn + wl * v_lf + wr * v_rt;
-  S.inv_u[i] = 1.f / (S.a11[i] + S.alpha * wsum);
-  S.inv_v[i] = 1.f / (S.a22[i] + S.alpha * wsum);
-  S.nuc[i] = nu - wsum * u[p];
-  S.nvc[i] = nv - wsum * v[p];
+  using sor_tiles::weighted_sum;
+  const float nu = weighted_sum(wu, wd, wl, wr, u_up, u_dn, u_lf, u_rt);
+  const float nv = weighted_sum(wu, wd, wl, wr, v_up, v_dn, v_lf, v_rt);
+  S.inv_u[i] = sor_tiles::inv_diagonal(S.a11[i], S.alpha, wsum);
+  S.inv_v[i] = sor_tiles::inv_diagonal(S.a22[i], S.alpha, wsum);
+  S.nuc[i] = sor_tiles::smoothness_constant(nu, wsum, u[p]);
+  S.nvc[i] = sor_tiles::smoothness_constant(nv, wsum, v[p]);
 }
 
 struct AllPairs {

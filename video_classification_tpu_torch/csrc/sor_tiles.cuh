@@ -34,7 +34,9 @@
 // owns the cells of rows w + kWarps * i, i < kRows, in both colours.
 //
 // The arithmetic is the plain twin's (ops/sor_solve.py::sor_solve_reference),
-// in its order; the files that include this one are built with -fmad=false.
+// in its order, with its fused multiply-adds as __fmaf_rn (XLA:CPU's, see
+// ops/fma.py); the files that include this one are built with -fmad=false,
+// so nvcc contracts nothing else.
 
 #pragma once
 
@@ -174,6 +176,43 @@ __device__ __forceinline__ Region region(const Window& w, int d, int H,
           w.wx1 < W ? WW - d : WW};
 }
 
+// wu*up + wd*dn + wl*lf + wr*rt with XLA:CPU's fused multiply-adds
+// (ops/sor_solve.py::weighted_sum); shared with the hoisted fields of
+// sor_solve.cu and flow_level.cu.
+__device__ __forceinline__ float weighted_sum(float wu, float wd, float wl,
+                                              float wr, float up, float dn,
+                                              float lf, float rt) {
+  return __fmaf_rn(wr, rt, __fmaf_rn(wl, lf, __fmaf_rn(wu, up, wd * dn)));
+}
+
+__device__ __forceinline__ float weighted_sum(const float* k, float up,
+                                              float dn, float lf, float rt) {
+  return weighted_sum(k[WU], k[WD], k[WL], k[WR], up, dn, lf, rt);
+}
+
+// One increment's over-relaxed update (ops/sor_solve.py::relax):
+// new = fma(alpha, s, fma(-a12, d_other, b)) * inv, then
+// fma(omega, new, (1 - omega) * d).
+__device__ __forceinline__ float relax(float d, float d_other, float b,
+                                       float a12, float s, float inv,
+                                       float alpha, float omega,
+                                       float one_m_omega) {
+  const float nw = __fmaf_rn(alpha, s, __fmaf_rn(-a12, d_other, b)) * inv;
+  return __fmaf_rn(omega, nw, one_m_omega * d);
+}
+
+// The hoisted reciprocal diagonal 1 / (a + alpha * wsum) and constant
+// smoothness term neighbour(f) - wsum * f (ops/sor_solve.py::hoisted).
+__device__ __forceinline__ float inv_diagonal(float a, float alpha,
+                                              float wsum) {
+  return 1.f / __fmaf_rn(alpha, wsum, a);
+}
+
+__device__ __forceinline__ float smoothness_constant(float neighbour,
+                                                     float wsum, float f) {
+  return __fmaf_rn(-wsum, f, neighbour);
+}
+
 // One half-sweep of colour kCol over region r: each thread updates its
 // cells of that colour, du then dv with the new du.
 template <int kCol>
@@ -202,20 +241,19 @@ __device__ __forceinline__ void half_sweep(
     const float du_dn = y < WH - 1 ? nb_du[dn] : 0.f;
     const float du_lf = x > 0 ? nb_du[lf] : 0.f;
     const float du_rt = x < WW - 1 ? nb_du[rt] : 0.f;
-    const float su = k[NUC] + (k[WU] * du_up + k[WD] * du_dn +
-                               k[WL] * du_lf + k[WR] * du_rt);
-    const float new_du = (k[B1] - k[A12] * dv_c + alpha * su) * k[INVU];
-    const float du_n = one_m_omega * du_c + omega * new_du;
+    const float su = k[NUC] + weighted_sum(k, du_up, du_dn, du_lf, du_rt);
+    const float du_n =
+        relax(du_c, dv_c, k[B1], k[A12], su, k[INVU], alpha, omega,
+              one_m_omega);
 
     const float dv_up = y > 0 ? nb_dv[up] : 0.f;
     const float dv_dn = y < WH - 1 ? nb_dv[dn] : 0.f;
     const float dv_lf = x > 0 ? nb_dv[lf] : 0.f;
     const float dv_rt = x < WW - 1 ? nb_dv[rt] : 0.f;
-    const float sv = k[NVC] + (k[WU] * dv_up + k[WD] * dv_dn +
-                               k[WL] * dv_lf + k[WR] * dv_rt);
-    const float new_dv = (k[B2] - k[A12] * du_n + alpha * sv) * k[INVV];
+    const float sv = k[NVC] + weighted_sum(k, dv_up, dv_dn, dv_lf, dv_rt);
     own_du[c] = du_n;
-    own_dv[c] = one_m_omega * dv_c + omega * new_dv;
+    own_dv[c] = relax(dv_c, du_n, k[B2], k[A12], sv, k[INVV], alpha, omega,
+                      one_m_omega);
   }
 }
 

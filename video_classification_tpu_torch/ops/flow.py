@@ -28,6 +28,21 @@ JAX package. The pyramid's bilinear resize computes what ``jax.image.resize(...,
 "linear")`` computes (antialiased when it downsamples): its weight matrices,
 rounded as XLA:CPU rounds them, contracted in float32.
 
+A level computes XLA:CPU's arithmetic: every multiply-add that XLA:CPU fuses
+into one rounding, compiling the JAX package's ``_flow_level``, is an exact
+``ops/fma.fma_f32`` here (``_normal_equations``, ``channel_dot``,
+``ops/flow_level.sum_of_squares``, ``ops/sor_solve.py``, ``ops/warp.py``),
+so that given XLA:CPU's rsqrt each outer of the per-op level is bit-equal
+to that function's at every level of the 240x320 and 96x128 pyramids, and
+K1's plain version to the interpreted Pallas kernel
+(``tests/test_torch_port_fma.py``). psi and phi take a correctly rounded
+rsqrt (``ops/fma.rsqrt_f32``), the one departure: XLA:CPU's is the CPU's
+hardware estimate refined by Newton steps, which no other device
+reproduces; the two differ on 8-12 % of psi's and up to 10 % of phi's
+values on the natural golden's frames (``tests/flow_natural_parity.py``).
+The pyramid's resize (an XLA:CPU dot, its sum over the taps ordered by its
+tiling) and blur are not held bit-equal.
+
 ``encode_flow_uint8`` is the on-disk encoding of the reference
 (chalearn_video_to_flow.py:79-101): U, V clipped to +-5 -> [0, 1], magnitude
 sqrt((U/5)^2 + (V/5)^2)/sqrt(2), all x255 and truncated to uint8.
@@ -42,7 +57,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .flow_level import _edge_weights, _grad_xy, flow_level
+from .fma import fma_f32, rsqrt_f32
+from .flow_level import _edge_weights, _grad_xy, flow_level, sum_of_squares
 from .sor_solve import sor_solve
 from .warp import warp_bilinear
 
@@ -182,54 +198,64 @@ def _use_fused_level(p: FlowParams) -> bool:
     return p.n_inner == 1 and p.fuse_level != "off"
 
 
-def _channel_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim, left to right (the same order on every
-    device)."""
-    out = x[..., 0]
-    for ch in range(1, x.shape[-1]):
-        out = out + x[..., ch]
+def channel_dot(p: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum over the last dim of p * x * y as XLA:CPU reduces it: from 0, each
+    channel's (p * x) * y fused into the running sum (x and y may stack
+    several pairs in front of p's dims)."""
+    px = p * x
+    out = torch.zeros_like(px[..., 0])
+    for ch in range(p.shape[-1]):
+        out = fma_f32(px[..., ch], y[..., ch], out)
     return out
 
 
 def _outer_terms(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
-                 v: torch.Tensor):
+                 v: torch.Tensor, n_inner: int = 1):
     """(ix, iy, it), each (B, H, W, C), of one outer: im2 warped by (u, v)
-    (K5), the mean of both images' gradients, the temporal difference."""
-    warped = warp_bilinear(im2, u, v)
+    (K5), the mean of both images' gradients, the temporal difference.
+
+    XLA:CPU rounds the warp in each fusion that holds it. With one inner the
+    gradients and ``it`` fuse the same order of the warp's first fused
+    multiply-add; when several inners reuse the terms, the fusion that
+    keeps the gradients in memory fuses the other order
+    (``ops/warp.bilinear_sum``), so K5 returns both."""
+    if n_inner > 1:
+        warped, warped_grad = warp_bilinear(im2, u, v, both_orders=True)
+    else:
+        warped = warped_grad = warp_bilinear(im2, u, v)
     ix1, iy1 = _grad_xy(im1, 1, 2)
-    ix2, iy2 = _grad_xy(warped, 1, 2)
+    ix2, iy2 = _grad_xy(warped_grad, 1, 2)
     return 0.5 * (ix1 + ix2), 0.5 * (iy1 + iy2), warped - im1
 
 
-def _normal_equations(ix, iy, it, u, v, du, dv, eps: float):
+def _normal_equations(ix, iy, it, u, v, du, dv, eps: float, rsqrt=rsqrt_f32):
     """(a11, a12, a22, b1, b2, wu, wd, wl, wr), each (B, H, W), of one inner:
     the IRLS data terms at the increments (du, dv) and the Charbonnier edge
-    weights of the total flow (u + du, v + dv)."""
-    rho = it + ix * du[..., None] + iy * dv[..., None]
-    psi = 1.0 / torch.sqrt(rho * rho + eps)
-    a11 = _channel_sum(psi * ix * ix)
-    a12 = _channel_sum(psi * ix * iy)
-    a22 = _channel_sum(psi * iy * iy)
-    b1 = -_channel_sum(psi * ix * it)
-    b2 = -_channel_sum(psi * iy * it)
+    weights of the total flow (u + du, v + dv). Every multiply-add is fused
+    where XLA:CPU fuses the JAX package's (``ops/fma.py``); ``rsqrt`` is the
+    reciprocal square root of psi and phi (the tests pass XLA:CPU's)."""
+    rho = fma_f32(iy, dv[..., None], fma_f32(ix, du[..., None], it))
+    psi = rsqrt(fma_f32(rho, rho, eps))
     ux, uy = _grad_xy(u + du, 1, 2)
     vx, vy = _grad_xy(v + dv, 1, 2)
-    mag = ux * ux + uy * uy + vx * vx + vy * vy
-    phi = 1.0 / torch.sqrt(mag + eps)
-    return (a11, a12, a22, b1, b2) + _edge_weights(phi)
+    phi = rsqrt(sum_of_squares(ux, uy, vx, vy) + eps)
+    a11, a12, a22, nb1, nb2 = channel_dot(psi, torch.stack([ix, ix, iy, ix, iy]),
+                                          torch.stack([ix, iy, iy, it, it]))
+    return (a11, a12, a22, -nb1, -nb2) + _edge_weights(phi)
 
 
 def _flow_level_per_op(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
-                       v: torch.Tensor, p: FlowParams):
+                       v: torch.Tensor, p: FlowParams, rsqrt=rsqrt_f32):
     """Refine (u, v) at one level along the JAX package's XLA path
     (``ops/flow.py::_flow_level``): per outer one warp (K5) and ``n_inner``
-    warm-started solves (K4); every outer runs."""
+    warm-started solves (K4); every outer runs. ``rsqrt`` as in
+    ``_normal_equations``."""
     for _outer in range(p.n_outer):
-        ix, iy, it = _outer_terms(im1, im2, u, v)
+        ix, iy, it = _outer_terms(im1, im2, u, v, p.n_inner)
         du = torch.zeros_like(u)
         dv = torch.zeros_like(v)
         for _inner in range(p.n_inner):
-            coeffs = _normal_equations(ix, iy, it, u, v, du, dv, p.eps)
+            coeffs = _normal_equations(ix, iy, it, u, v, du, dv, p.eps, rsqrt)
             du, dv = sor_solve(*coeffs, u, v, p.n_sor, p.alpha, p.omega,
                                du, dv)
         u = u + du

@@ -8,8 +8,13 @@ early exit once an outer's max|du, dv| <= ``outer_tol``. See
 ``csrc/flow_level.cu`` for the design on Hopper.
 
 ``flow_level_reference`` performs the kernel's float32 operations in the
-kernel's order with plain tensor ops. It is the CPU path and the kernel's
-oracle on the card.
+kernel's order with plain tensor ops, with the fused multiply-adds that
+XLA:CPU makes of the Pallas kernel run in interpret mode (``ops/fma.py``)
+and a correctly rounded rsqrt for psi and phi. Given XLA:CPU's rsqrt it is
+bit-equal to that kernel whenever the kernel's outer loop runs at least two
+trips (``n_outer >= 2``: with one, XLA:CPU compiles the body outside the
+loop and fuses differently). It is the CPU path and the kernel's oracle on
+the card.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
+from .fma import fma_f32, rsqrt_f32
 from .sor_solve import (SCHEDULE, _shift_zero, check_tileable,
                         sor_solve_reference)
 
@@ -77,6 +83,12 @@ def _grad_xy(f: torch.Tensor, y_dim: int, x_dim: int):
     return diff(x_dim), diff(y_dim)
 
 
+def sum_of_squares(a, b, c, d) -> torch.Tensor:
+    """a*a + b*b + c*c + d*d as XLA:CPU computes it (the smoothness
+    magnitude): fma(d, d, fma(c, c, fma(a, a, b * b)))."""
+    return fma_f32(d, d, fma_f32(c, c, fma_f32(a, a, b * b)))
+
+
 def _edge_weights(phi: torch.Tensor):
     """(w_up, w_down, w_left, w_right) half-point smoothness weights of phi
     (B, H, W), zero across the border."""
@@ -93,8 +105,11 @@ def _edge_weights(phi: torch.Tensor):
 def flow_level_reference(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
                          v: torch.Tensor, n_outer: int, n_sor: int,
                          alpha: float, omega: float, eps: float, r_cap: int,
-                         outer_tol: float) -> Tensors3:
-    """The kernel's arithmetic with plain tensor ops (any device)."""
+                         outer_tol: float, rsqrt=rsqrt_f32) -> Tensors3:
+    """The kernel's arithmetic with plain tensor ops (any device). Every
+    multiply-add is fused where XLA:CPU fuses the Pallas kernel's
+    (``ops/fma.py``); ``rsqrt`` is the reciprocal square root of psi and phi
+    (the tests pass XLA:CPU's)."""
     b, h, w, c = im1.shape
     dev = im1.device
     rows = torch.arange(h, device=dev).view(1, h, 1)
@@ -120,31 +135,30 @@ def flow_level_reference(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
         omy, omx = 1.0 - wy, 1.0 - wx
         idx = (y0 * w + x0).reshape(b, h * w, 1).expand(b, h * w, c)
 
-        def corner(off, weight):
-            g = torch.gather(flat2, 1, idx + off).reshape(b, h, w, c)
-            return g * weight[..., None]
+        def corner(off):
+            return torch.gather(flat2, 1, idx + off).reshape(b, h, w, c)
 
-        warped = corner(0, omy * omx)
-        warped = warped + corner(1, omy * wx)
-        warped = warped + corner(w, wy * omx)
-        warped = warped + corner(w + 1, wy * wx)
+        # The select-shift warp's sum over the shifts in ascending order, each
+        # term fused into the running sum; its only nonzero terms are the
+        # four corners.
+        warped = corner(0) * (omy * omx)[..., None]
+        for off, weight in ((1, omy * wx), (w, wy * omx), (w + 1, wy * wx)):
+            warped = fma_f32(corner(off), weight[..., None], warped)
 
         ix, iy = _grad_xy(0.5 * (im1 + warped), 1, 2)
         it = warped - im1
-        psi = 1.0 / torch.sqrt(it * it + eps)
-        a11 = a12 = a22 = b1 = b2 = torch.zeros_like(u)
+        psi = rsqrt(fma_f32(it, it, eps))
+        # Per channel, a11 += psi*ix * ix, ..., b1 -= psi*ix * it, each fused.
+        pxy = psi * torch.stack([ix, ix, iy, -ix, -iy])
+        xyt = torch.stack([ix, iy, iy, it, it])
+        acc = torch.zeros_like(pxy[..., 0])
         for ch in range(c):
-            p_, x_, y_, t_ = psi[..., ch], ix[..., ch], iy[..., ch], it[..., ch]
-            a11 = a11 + p_ * x_ * x_
-            a12 = a12 + p_ * x_ * y_
-            a22 = a22 + p_ * y_ * y_
-            b1 = b1 - p_ * x_ * t_
-            b2 = b2 - p_ * y_ * t_
+            acc = fma_f32(pxy[..., ch], xyt[..., ch], acc)
+        a11, a12, a22, b1, b2 = acc
 
         ux, uy = _grad_xy(u, 1, 2)
         vx, vy = _grad_xy(v, 1, 2)
-        mag = ux * ux + uy * uy + vx * vx + vy * vy
-        phi = 1.0 / torch.sqrt(mag + eps)
+        phi = rsqrt(sum_of_squares(ux, uy, vx, vy) + eps)
         du, dv = sor_solve_reference(a11, a12, a22, b1, b2, *_edge_weights(phi),
                                      u, v, n_sor, alpha, omega)
 

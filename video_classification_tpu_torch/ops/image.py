@@ -31,6 +31,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .fma import fma_f32
+
 _CUBIC_A = -0.75  # OpenCV's bicubic coefficient (interpolateCubic)
 
 NORM_MEAN = 0.45
@@ -306,11 +308,9 @@ def resize_linear_u8(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
 
 
 def _lerp_fma(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """float32(a + (b - a) * f) rounded once at the end, as a fused multiply-add:
-    (b - a) * f of two float32 values is exact in float64, the sum is rounded to
-    float64 and then to float32 (the same as the fused result unless the float64
-    sum lands exactly on a float32 rounding midpoint, a 2**-29 chance)."""
-    return (a.double() + (b - a).double() * f.double()).float()
+    """float32(a + (b - a) * f) rounded once at the end, as a fused multiply-add
+    (``ops/fma.fma_f32``)."""
+    return fma_f32(b - a, f, a)
 
 
 def resize_linear_f32(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:

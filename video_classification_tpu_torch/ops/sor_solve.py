@@ -14,9 +14,15 @@ in one launch on a frame that fits one window.
 
 ``sor_solve_reference`` performs the kernel's float32 operations in the
 kernel's order with plain tensor ops, as the JAX package's XLA loop
-(``ops/flow.py::_flow_level``) does. It is the CPU path and the kernel's
-oracle on the card, and the solve of K1's plain twin
-(``ops/flow_level.py``), whose sweeps are the same.
+(``ops/flow.py::_flow_level``) does, with XLA:CPU's fused multiply-adds
+(``ops/fma.py``) in its places: ``weighted_sum``, ``hoisted`` and ``relax``.
+From the same coefficients it is bit-equal to that loop at every level
+shape, and to the Pallas kernel run in interpret mode when all its sweeps
+run inside its loop (an even ``n_sor`` of at least 4: XLA:CPU compiles the
+remainder sweep, and a loop of one trip, outside the loop and fuses dv's
+update there differently). It is the CPU path and the kernel's oracle on
+the card, and the solve of K1's plain twin (``ops/flow_level.py``), whose
+sweeps are the same.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import cuda
+from .fma import fma_f32
 
 FIELDS = ("a11", "a12", "a22", "b1", "b2", "wu", "wd", "wl", "wr", "u", "v",
           "du0", "dv0")
@@ -100,10 +107,52 @@ def _shift_zero(f: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return out
 
 
+def weighted_sum(wu, wd, wl, wr, up, dn, lf, rt):
+    """wu*up + wd*dn + wl*lf + wr*rt as XLA:CPU computes it: left to right,
+    each product after the first fused into the running sum
+    (``fma(wr, rt, fma(wl, lf, fma(wu, up, wd * dn)))``)."""
+    return fma_f32(wr, rt, fma_f32(wl, lf, fma_f32(wu, up, wd * dn)))
+
+
 def _neighbour(f, wu, wd, wl, wr):
     """sum_q w_pq * f_q over the 4-neighbourhood, zero outside."""
-    return (wu * _shift_zero(f, 1, 0) + wd * _shift_zero(f, -1, 0)
-            + wl * _shift_zero(f, 0, 1) + wr * _shift_zero(f, 0, -1))
+    return weighted_sum(wu, wd, wl, wr, _shift_zero(f, 1, 0),
+                        _shift_zero(f, -1, 0), _shift_zero(f, 0, 1),
+                        _shift_zero(f, 0, -1))
+
+
+def hoisted(a11, a22, wu, wd, wl, wr, u, v, alpha: float):
+    """(inv_u, inv_v, nu_const, nv_const), hoisted out of the sweeps as in
+    the JAX package: the reciprocal diagonals 1 / (a + alpha * wsum) and the
+    constant total-flow part of the smoothness term, neighbour(u) - wsum * u,
+    each multiply-add fused where XLA:CPU fuses it."""
+    wsum = wu + wd + wl + wr
+    return (1.0 / fma_f32(alpha, wsum, a11), 1.0 / fma_f32(alpha, wsum, a22),
+            fma_f32(-wsum, u, _neighbour(u, wu, wd, wl, wr)),
+            fma_f32(-wsum, v, _neighbour(v, wu, wd, wl, wr)))
+
+
+def relax(d, d_other, b, a12, s, inv, alpha: float, omega: float):
+    """One increment's over-relaxed update, (1 - omega) * d + omega * new
+    with new = (b - a12 * d_other + alpha * s) * inv, fused as XLA:CPU
+    fuses it: new = fma(alpha, s, fma(-a12, d_other, b)) * inv, then
+    fma(omega, new, (1 - omega) * d)."""
+    new = fma_f32(alpha, s, fma_f32(-a12, d_other, b)) * inv
+    return fma_f32(omega, new, (1 - omega) * d)
+
+
+def _colours(b: int, h: int, w: int, device):
+    """Red ((y + x) % 2 == 0), then black: for each, the flat indices of its
+    pixels in a (B, H, W) field and of their up, down, left and right
+    neighbours, where index B*H*W stands for a neighbour outside the frame."""
+    n = b * h * w
+    flat = torch.arange(n, device=device).view(b, h, w)
+    y = torch.arange(h, device=device).view(1, h, 1)
+    x = torch.arange(w, device=device).view(1, 1, w)
+    nbrs = (torch.where(y > 0, flat - w, n), torch.where(y < h - 1, flat + w, n),
+            torch.where(x > 0, flat - 1, n), torch.where(x < w - 1, flat + 1, n))
+    red = ((y + x) % 2 == 0).expand(b, h, w)
+    return [(flat[m], [f[m] for f in nbrs]) for m in (red, ~red)]
 
 
 def sor_solve_reference(a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v,
@@ -111,28 +160,31 @@ def sor_solve_reference(a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v,
                         du0: Optional[torch.Tensor] = None,
                         dv0: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic with plain tensor ops (any device)."""
-    _, h, w = a11.shape
-    dev = a11.device
-    rows = torch.arange(h, device=dev).view(1, h, 1)
-    cols = torch.arange(w, device=dev).view(1, 1, w)
-    red = (rows + cols) % 2 == 0
-    # Hoisted out of the sweeps, as in the JAX package: the reciprocal
-    # diagonals and the constant total-flow part of the smoothness term.
-    wsum = wu + wd + wl + wr
-    inv_u = 1.0 / (a11 + alpha * wsum)
-    inv_v = 1.0 / (a22 + alpha * wsum)
-    nu_const = _neighbour(u, wu, wd, wl, wr) - wsum * u
-    nv_const = _neighbour(v, wu, wd, wl, wr) - wsum * v
-
-    du = torch.zeros_like(a11) if du0 is None else du0.clone()
-    dv = torch.zeros_like(a11) if dv0 is None else dv0.clone()
+    """The kernel's arithmetic with plain tensor ops (any device). A
+    half-sweep computes only its colour's pixels: (du, dv) are kept flat
+    with a trailing 0 for the neighbours outside the frame."""
+    b, h, w = a11.shape
+    inv_u, inv_v, nu_const, nv_const = hoisted(a11, a22, wu, wd, wl, wr, u, v,
+                                               alpha)
+    start = [a11.new_zeros(a11.shape) if d is None else d for d in (du0, dv0)]
+    du, dv = (torch.cat([d.flatten(), a11.new_zeros(1)]) for d in start)
+    colours = []
+    for pix, nbrs in _colours(b, h, w, a11.device):
+        cwu, cwd, cwl, cwr, ca12, cb1, cb2, ciu, civ, cnu, cnv = (
+            f.flatten()[pix] for f in (wu, wd, wl, wr, a12, b1, b2, inv_u,
+                                       inv_v, nu_const, nv_const))
+        # The fields that only fma_f32 multiplies or adds go to float64 once
+        # (exactly) rather than in every call; wd stays float32 for the
+        # product wd * dn, rounded before the first fused add.
+        colours.append((pix, nbrs, (cwu.double(), cwd, cwl.double(),
+                                    cwr.double(), ca12.double(), cb1.double(),
+                                    cb2.double(), ciu, civ, cnu, cnv)))
     for _ in range(n_sor):
-        for mask in (red, ~red):
-            su = nu_const + _neighbour(du, wu, wd, wl, wr)
-            new_du = (b1 - a12 * dv + alpha * su) * inv_u
-            du = torch.where(mask, (1 - omega) * du + omega * new_du, du)
-            sv = nv_const + _neighbour(dv, wu, wd, wl, wr)
-            new_dv = (b2 - a12 * du + alpha * sv) * inv_v
-            dv = torch.where(mask, (1 - omega) * dv + omega * new_dv, dv)
-    return du, dv
+        for pix, nbrs, (cwu, cwd, cwl, cwr, ca12, cb1, cb2, ciu, civ, cnu,
+                        cnv) in colours:
+            su = cnu + weighted_sum(cwu, cwd, cwl, cwr, *(du[i] for i in nbrs))
+            du_new = relax(du[pix], dv[pix], cb1, ca12, su, ciu, alpha, omega)
+            du[pix] = du_new
+            sv = cnv + weighted_sum(cwu, cwd, cwl, cwr, *(dv[i] for i in nbrs))
+            dv[pix] = relax(dv[pix], du_new, cb2, ca12, sv, civ, alpha, omega)
+    return du[:-1].view(b, h, w), dv[:-1].view(b, h, w)

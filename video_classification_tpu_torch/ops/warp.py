@@ -9,8 +9,9 @@ clamped to the border, for every flow, with no radius. See ``csrc/warp.cu``
 for the design on Hopper.
 
 ``warp_bilinear_reference`` is the JAX package's ``_warp_bilinear`` with the
-same float32 operations in the same order: the CPU path and the kernel's
-oracle on the card.
+same float32 operations in the same order, its multiply-adds fused where
+XLA:CPU fuses them (``bilinear_sum``): the CPU path and the kernel's oracle
+on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda
+from .fma import fma_f32
 
 
 def _check_inputs(im, u, v) -> None:
@@ -36,24 +38,41 @@ def _check_inputs(im, u, v) -> None:
             raise ValueError(f"{name} is on {t.device}, im on {im.device}")
 
 
-def warp_bilinear(im: torch.Tensor, u: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+def warp_bilinear(im: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  both_orders: bool = False):
     """im (B, H, W, C) f32 sampled at (x + u, y + v), clamped to the border;
-    u, v (B, H, W) f32. CPU tensors run ``warp_bilinear_reference``; CUDA
-    tensors launch the kernel (and raise if it cannot build or launch)."""
+    u, v (B, H, W) f32. With ``both_orders`` also the same warp with the
+    other order of XLA:CPU's first fused multiply-add (``bilinear_sum``), as
+    a pair (warped, warped_right). CPU tensors run
+    ``warp_bilinear_reference``; CUDA tensors launch the kernel (and raise if
+    it cannot build or launch)."""
     _check_inputs(im, u, v)
     if im.device.type == "cpu":
-        return warp_bilinear_reference(im, u, v)
-    out = cuda.build().warp_bilinear(im, u, v)
+        return warp_bilinear_reference(im, u, v, both_orders)
+    out = cuda.build().warp_bilinear(im, u, v, bool(both_orders))
     warp_bilinear.launches += 1
-    return out
+    return tuple(out) if both_orders else out[0]
 
 
 warp_bilinear.launches = 0
 
 
+def bilinear_sum(a, b, c, d, omx, wx, right_first: bool = False):
+    """a*omx + b*wx + c*omx + d*wx (a..d the corners already weighted by
+    their row) as XLA:CPU computes the JAX package's sum: left to right, the
+    first two products in one fused multiply-add and each later product
+    fused into the running sum. Which of the first two XLA:CPU fuses depends
+    on the fusion that holds the warp: the left one, fma(a, omx, b * wx),
+    where the warp feeds ``it`` or, recomputed, the gradients; the right
+    one, fma(b, wx, a * omx), in the fusion that keeps the gradients in
+    memory for several inners (``right_first``)."""
+    first = (fma_f32(b, wx, a * omx) if right_first
+             else fma_f32(a, omx, b * wx))
+    return fma_f32(d, wx, fma_f32(c, omx, first))
+
+
 def warp_bilinear_reference(im: torch.Tensor, u: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
+                            v: torch.Tensor, both_orders: bool = False):
     """The kernel's arithmetic with plain tensor ops (any device)."""
     b, h, w, c = im.shape
     dev = im.device
@@ -73,7 +92,9 @@ def warp_bilinear_reference(im: torch.Tensor, u: torch.Tensor,
     def corner(off):
         return torch.gather(flat, 1, idx + off).reshape(b, h, w, c)
 
-    return (corner(0) * (1 - wy) * (1 - wx)
-            + corner(1) * (1 - wy) * wx
-            + corner(w) * wy * (1 - wx)
-            + corner(w + 1) * wy * wx)
+    omy, omx = 1 - wy, 1 - wx
+    rows = (corner(0) * omy, corner(1) * omy, corner(w) * wy,
+            corner(w + 1) * wy, omx, wx)
+    if both_orders:
+        return bilinear_sum(*rows), bilinear_sum(*rows, right_first=True)
+    return bilinear_sum(*rows)

@@ -37,9 +37,11 @@ SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
 # strips). ``load`` hashes only the sources, so ``cuda_flags`` carries a
 # digest of the headers: editing one changes the flags and rebuilds.
 HEADERS = ("sor_tiles.cuh", "cluster_strips.cuh")
-# -fmad=false keeps every multiply and add separately rounded (no fused
-# multiply-add contraction), so a kernel performs the same float32 operations,
-# in the same order, as its plain PyTorch twin.
+# -fmad=false stops nvcc from contracting a multiply and an add on its own, so
+# a kernel performs the same float32 operations, in the same order, as its
+# plain PyTorch twin: the fused multiply-adds are written out as __fmaf_rn
+# exactly where the twin calls ops/fma.fma_f32 (where XLA:CPU fuses the JAX
+# package's), every other product and sum is rounded separately.
 CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false"]
 
 
