@@ -57,8 +57,8 @@ Phases, each fatal on failure:
      14, float32) on the card and on the CPU, same frames and weights:
      detections at the CPU tests' bars, then clips and scores as in 8;
  10. K4 sor_solve bit-equal to its plain version at every level shape, on
-     the per-op setup's coefficients of 4 pairs from a nonzero flow with
-     cold (zero) and warm (random) starts, on random systems at the edge
+     the per-op setup's coefficients (from the IRLS kernel of 43) of 4 pairs
+     from a nonzero flow with cold (zero) and warm (random) starts, on random systems at the edge
      shapes and sweep counts of 3, cold and warm, then the 101-pair serving
      batch (timed, with the half-sweeps per launch and time per half-sweep);
      K1's and K4's times beside theirs before the multiply-adds were fused
@@ -83,8 +83,9 @@ Phases, each fatal on failure:
      whole frame; the natural 240x320 on the per-op and the fused path
      within +-1 and +-2, whole frame and beyond 8 px, logged;
  14. slowfast-HTAH served at full width as in 6 with
-     FlowParams(fuse_level="off"): K4, K5 and K2 must launch, K1 and K6
-     must not;
+     FlowParams(fuse_level="off"): K4, K5, K2 and the IRLS kernel must
+     launch, K1 and K6 must not; the IRLS kernel and K4 exactly once an
+     inner (126 a request); the flow stage's seconds;
  15. the per-op serving code at a small size on the card and on the CPU,
      with n_inner 1 (fuse_level "off") and n_inner 2, at the bars of 8;
  16. slowfast-HTAH trained at full width (bf16 compute, float32 master
@@ -106,9 +107,9 @@ Phases, each fatal on failure:
      weights, batch and crop offsets (float32, TF32 off, dropout 0): loss
      within 1e-4 relative, gradients against float32's measured resolution
      (gradient_gaps), running statistics and eval scores within 5e-3;
- 20. each of the six bindings given one malformed input in a child process
-     of its own must raise a Python exception; a child ended by a signal
-     fails.
+ 20. each of the seven bindings given one malformed input in a child
+     process of its own must raise a Python exception; a child ended by a
+     signal fails.
 Then the ensemble slice:
  21. the five part streams of engine/sparse.PART_YAMLS at full width
      (SlowFast-R50, 249 classes, CLIP_LEN 20, bf16, seeded random weights;
@@ -136,8 +137,8 @@ Then the ensemble slice:
      (its gradient with the batch rows permuted); the card's float64 step
      within 1e-6 of the CPU's;
  26. ``python -m video_classification_tpu_torch`` in a subprocess on the
-     card: sparse-train on 21's materials and tools how-many-classes, both
-     exit 0.
+     card: sparse-train on 21's materials and tools how-many-classes, at
+     once, both exit 0.
 Then the offline chain (pipeline/stages, detect/provider, pipeline/frame_io):
  27. the DensePose provider's three resizes (ops/image: OpenCV's
      INTER_LINEAR on uint8 frames and float32 U/V, INTER_NEAREST on
@@ -229,10 +230,10 @@ Then the parallel slice (native/, parallel/, remat, engine/parallel_streams):
      per step of each;
  41. `python -m video_classification_tpu_torch train-parallel slowfast-HTAH
      slowfast-Torso` at full width (bf16, batch 16, one epoch of one step)
-     against `train` of each in sequence: wall times, each stream's final
-     checkpoint within the train bars; conv3d_temporal_sharded over two gloo
-     ranks at a res4 conv_a's full-width shape against the unsharded
-     convolution (TF32 off).
+     against `train` of each in sequence (in one process): wall times, each
+     stream's final checkpoint within the train bars;
+     conv3d_temporal_sharded over two gloo ranks at a res4 conv_a's
+     full-width shape against the unsharded convolution (TF32 off).
 Then the JAX package's checkpoint files:
  42. slowfast-HTAH (depth 50, 249 classes, CropHTAH 192, CLIP_LEN 20,
      seeded) and a seeded SparseModel (249 x 5) written through
@@ -246,11 +247,20 @@ Then the JAX package's checkpoint files:
      HTAH file, the fusion from its msgpack file) serves [21]'s three
      videos, its probabilities bit-equal to the ensemble given the same
      weights directly, K1 and K2 launched exactly as in [21].
+The per-op inner's IRLS coefficients (run after 11):
+ 43. the IRLS kernel (csrc/irls.cu, ops/irls.py) bit-equal to its plain
+     version, all nine fields: at the SOR tiles' edge shapes, then at every
+     level shape of the 240x320 pyramid with the 101-pair serving batch,
+     with one inner (zero increments, the warp's one order) and two (a
+     nonzero warm start, K5's both orders); each 101-pair call timed beside
+     the plain version and its bound (bytes).
 Then one JSON line describing each kernel (with its launches per online
 train step, from 18, per ensemble request, from 21, per offline video, from
 28 and 29, and per v2 video, from 34's DensePose run; K1, K2 and K3 with
 their offline rows from 30, K2 with its v2 rows from 34, K3 with its rows
-past 8192 from 38 and its box-head call alone from 7), the nvidia-smi line, and last {"ok": true,
+past 8192 from 38 and its box-head call alone from 7, the IRLS kernel with
+its levels from 43 and the per-op flow stage from 14), the nvidia-smi line,
+and last {"ok": true,
 "device": {...}}. Exits non-zero without a result when CUDA is unavailable.
 """
 
@@ -494,29 +504,31 @@ def check_flow_level(dev, pyramids):
     return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
 
 
-def executed_rounds_per_mask(reference, masks, cap: int):
+def rounds_per_mask(states, cap: int, groups):
     """Rounds each mask's propagation executes when it stops at its own
-    fixed point: the fewest k after which reference(masks, k) (k rounds at
-    most; a tuple of tensors) no longer changes, found by bisection, plus
-    the last round, which sees no change; at most cap. The masks sharing a
-    bisection step share its call."""
+    fixed point, for each group of fields (a tuple of field indices): the
+    fewest rounds after which the group equals its state after ``cap``
+    rounds, plus the last round, which sees no change; at most cap.
+    ``states`` is one run of a plain propagation, its state before the first
+    round and after each (a tuple of tensors), ending at its fixed point. A
+    mask's fields change at every round up to their last change and never
+    after, so those fewest rounds are the round of that last change."""
     import torch
 
-    want = reference(masks, cap)
-    lo, hi = [0] * masks.shape[0], [cap] * masks.shape[0]
-    while any(a < b for a, b in zip(lo, hi)):
-        steps = {}
-        for i, (a, b) in enumerate(zip(lo, hi)):
-            if a < b:
-                steps.setdefault((a + b) // 2, []).append(i)
-        for mid, idx in steps.items():
-            got = reference(masks[idx], mid)
-            for j, i in enumerate(idx):
-                if all(torch.equal(g[j], w[i]) for g, w in zip(got, want)):
-                    hi[i] = mid
-                else:
-                    lo[i] = mid + 1
-    return [min(a + 1, cap) for a in lo]
+    last = prev = None
+    for k, state in enumerate(states):
+        if prev is None:
+            last = [torch.zeros(state[0].shape[0], dtype=torch.int64,
+                                device=state[0].device) for _ in groups]
+        else:
+            for g, fields in enumerate(groups):
+                changed = torch.stack([(state[f] != prev[f]).flatten(1).any(1)
+                                       for f in fields]).any(0)
+                last[g] = torch.where(changed, k, last[g])
+        prev = state
+        if k == cap:
+            break
+    return [[min(x + 1, cap) for x in group.tolist()] for group in last]
 
 
 def serpentine(h: int, w: int):
@@ -595,17 +607,15 @@ def time_extents(what, masks, fields_per_pass, route):
     mask's executed iterations (per pass of ``fields_per_pass`` fields, the
     fields of one word), the bound and the time per dependent iteration."""
     from video_classification_tpu_torch.ops.component_extents import (
-        component_extents, component_extents_reference)
+        component_extents, component_extents_reference, component_extents_rounds)
 
     b, h, w = masks.shape
     ms = cuda_ms(lambda: component_extents(masks), reps=20)
     _, plain = cuda_call_ms(lambda: component_extents_reference(masks))
     fg = (masks != 0).flatten(1).sum(1).tolist()
-    passes = []
-    for f in range(0, 4, fields_per_pass):
-        def reference(m, k, f=f):
-            return component_extents_reference(m, k)[f:f + fields_per_pass]
-        passes.append(executed_rounds_per_mask(reference, masks, h + w))
+    passes = rounds_per_mask(component_extents_rounds(masks), h + w,
+                             [tuple(range(f, f + fields_per_pass))
+                              for f in range(0, 4, fields_per_pass)])
     # Each foreground pixel's separable 3x3 minimum per executed iteration
     # of its mask and pass: 2 vertical and 2 horizontal minima of one word
     # (byte-wise or halfword-wise) and the change test, at the f32 rate.
@@ -915,8 +925,8 @@ def check_sor_solve(dev, pyramids):
     sweep counts; then the 101-pair serving batch from zero flow, timed."""
     import torch
 
-    from video_classification_tpu_torch.ops.flow import (
-        FlowParams, _normal_equations, _outer_terms)
+    from video_classification_tpu_torch.ops.flow import FlowParams, _warps
+    from video_classification_tpu_torch.ops.irls import irls_coefficients
     from video_classification_tpu_torch.ops.sor_solve import (
         sor_solve, sor_solve_reference)
 
@@ -931,17 +941,19 @@ def check_sor_solve(dev, pyramids):
             sor_solve_reference(*args) if plain is None else plain))
         log(f"  K4 {what}: bit-equal")
 
-    def level_args(ix, iy, it, u, v, du0, dv0):
-        coeffs = _normal_equations(ix, iy, it, u, v, du0, dv0, p.eps)
+    def level_args(warps, u, v, du0, dv0):
+        # The per-op inner's coefficients, from the IRLS kernel ([43] holds
+        # it bit-equal to its plain version).
+        coeffs = irls_coefficients(*warps, u, v, du0, dv0, p.eps)
         return (*coeffs, u, v, p.n_sor, p.alpha, p.omega, du0, dv0)
 
     for lvl, (h, w) in enumerate(shapes):
         u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
-        terms = _outer_terms(pyr1[lvl], pyr2[lvl], u0, v0)
+        warps = (pyr1[lvl], *_warps(pyr2[lvl], u0, v0))
         z = torch.zeros_like(u0)
-        exact(f"{h}x{w} x4, cold start", level_args(*terms, u0, v0, z, z))
+        exact(f"{h}x{w} x4, cold start", level_args(warps, u0, v0, z, z))
         du0, dv0 = (smooth_noise(g, 4, h, w, 0.3).to(dev) for _ in range(2))
-        exact(f"{h}x{w} x4, warm start", level_args(*terms, u0, v0, du0, dv0))
+        exact(f"{h}x{w} x4, warm start", level_args(warps, u0, v0, du0, dv0))
     for h, w in EDGE_SHAPES:
         for warm in (False, True):
             t = random_system(g, 2, h, w, warm, dev)
@@ -953,9 +965,9 @@ def check_sor_solve(dev, pyramids):
     levels = []
     for lvl, (h, w) in enumerate(shapes):
         z = torch.zeros((b, h, w), device=dev)
-        terms = _outer_terms(serving_batch(pyr1, lvl), serving_batch(pyr2, lvl), z, z)
-        args = level_args(*terms, z, z, z, z)
-        del terms
+        warps = (serving_batch(pyr1, lvl), *_warps(serving_batch(pyr2, lvl), z, z))
+        args = level_args(warps, z, z, z, z)
+        del warps
         plain, plain_ms = cuda_call_ms(lambda: sor_solve_reference(*args))
         exact(f"{h}x{w} x{b}, zero flow", args, plain)
         ms = cuda_ms(lambda: sor_solve(*args))
@@ -969,6 +981,80 @@ def check_sor_solve(dev, pyramids):
         levels.append(row)
         log(f"  K4 time {json.dumps(row)}")
     return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
+
+
+def irls_ops_per_pixel(c: int) -> int:
+    """f32 operations the IRLS coefficients need per pixel (a fused
+    multiply-add counts 2, a reciprocal square root 1), counted from the
+    plain version with phi computed once: per channel 32 (the two images'
+    gradients 8, their means 4, it 1, rho 4, psi 3, psi * ix and psi * iy 2,
+    the five sums 10); per pixel 29 (the total flow 2, its gradients 8, the
+    magnitude 7, phi 2, the edge weights 8, b1 and b2 negated 2)."""
+    return 29 + 32 * c
+
+
+def irls_bytes(b: int, h: int, w: int, c: int, images: int) -> int:
+    """Bytes the IRLS coefficients must move: ``images`` (B, H, W, C) inputs
+    (im1 and warped, and warped_grad when it is a tensor of its own), u, v,
+    du and dv in, the nine (B, H, W) fields out."""
+    return (images * c + 4 + 9) * b * h * w * 4
+
+
+def check_irls(dev, pyramids):
+    """The IRLS coefficients' kernel bit-equal to its plain version (all nine
+    fields): at the SOR tiles' edge shapes (2 random pairs), then at every
+    level shape of the 240x320 pyramid with the 101-pair serving batch, from
+    a nonzero flow, with one inner (zero increments; warped_grad is the
+    warp) and two (a nonzero warm start; K5's both orders); the serving
+    batch timed beside the plain version and the bound (bytes)."""
+    import torch
+
+    from video_classification_tpu_torch.ops.flow import FlowParams, _warps
+    from video_classification_tpu_torch.ops.irls import (
+        irls_coefficients, irls_coefficients_reference)
+
+    eps = FlowParams().eps
+    shapes, pyr1, pyr2, g = pyramids
+    worst = [0.0]
+
+    def inputs(im1, im2, n_inner, b, h, w):
+        u0, v0, du0, dv0 = (smooth_noise(g, b, h, w, s).to(dev)
+                            for s in (1.5, 1.5, 0.3, 0.3))
+        if n_inner == 1:
+            du0 = dv0 = torch.zeros_like(u0)
+        return (im1, *_warps(im2, u0, v0, n_inner), u0, v0, du0, dv0, eps)
+
+    def exact(what, args, plain=None):
+        worst[0] = max(worst[0], require_equal(
+            f"IRLS {what}", irls_coefficients(*args),
+            irls_coefficients_reference(*args) if plain is None else plain))
+
+    for h, w in EDGE_SHAPES:
+        im1, im2 = (torch.rand((2, h, w, 3), generator=g).to(dev) for _ in range(2))
+        for n_inner in (1, 2):
+            exact(f"{h}x{w} x2, n_inner {n_inner}", inputs(im1, im2, n_inner, 2, h, w))
+        log(f"  IRLS {h}x{w} x2: bit-equal (9 fields), n_inner 1 and 2")
+
+    b = SERVING_PAIRS
+    levels = []
+    for lvl, (h, w) in enumerate(shapes):
+        a1, a2 = serving_batch(pyr1, lvl), serving_batch(pyr2, lvl)
+        row = {"level": f"{h}x{w}", "pairs": b}
+        for n_inner in (1, 2):
+            args = inputs(a1, a2, n_inner, b, h, w)
+            plain, plain_ms = cuda_call_ms(lambda: irls_coefficients_reference(*args))
+            exact(f"{h}x{w} x{b}, n_inner {n_inner}", args, plain)
+            del plain
+            ms = cuda_ms(lambda: irls_coefficients(*args), reps=10)
+            bound_ms, bound_by = bound(b * h * w * irls_ops_per_pixel(3),
+                                       irls_bytes(b, h, w, 3, 2 if n_inner == 1 else 3))
+            row[f"n_inner_{n_inner}"] = {
+                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                "bound_ms": round(bound_ms, 4), "bound_by": bound_by}
+            del args
+        levels.append(row)
+        log(f"  IRLS {h}x{w} x{b}: bit-equal, n_inner 1 and 2; time {json.dumps(row)}")
+    return {"max_abs_err": worst[0], "levels": levels, **levels[0]["n_inner_1"]}
 
 
 def check_warp(dev, pyramids):
@@ -1110,13 +1196,13 @@ def time_labels(what, masks, route):
     """K6's device time on ``masks`` beside its plain version's, each
     mask's executed rounds, the bound and the time per dependent round."""
     from video_classification_tpu_torch.ops.label_components import (
-        label_components, label_components_reference)
+        label_components, label_components_reference, label_components_rounds)
 
     b, h, w = masks.shape
     ms = cuda_ms(lambda: label_components(masks), reps=20)
     _, plain = cuda_call_ms(lambda: label_components_reference(masks))
-    rounds = executed_rounds_per_mask(lambda m, k: (label_components_reference(m, k),),
-                                      masks, h + w)
+    rounds, = rounds_per_mask(((s,) for s in label_components_rounds(masks)), h + w,
+                              [(0,)])
     # Each foreground pixel's separable 3x3 minimum per executed round of
     # its mask: 2 vertical and 2 horizontal minima and the change test,
     # counted at the f32 rate as for K2; the mask in, the labels out.
@@ -1246,12 +1332,14 @@ def full_width_detector(dev, root: str):
 
 
 def serve_full_width(dev, root: str, videos, kernels, detector=None,
-                     flow_params=None, absent=(), name="slowfast-HTAH", clips=2):
+                     flow_params=None, absent=(), name="slowfast-HTAH", clips=2,
+                     stages=None):
     """Three requests through Predictor.predict_frames of the stream
     ``name`` (each giving ``clips`` clip windows); ``kernels`` (which must
     launch) and ``absent`` (which must not) are the wrappers whose launch
     counts are zeroed just before and read just after. Returns (counts of
-    both, latencies, the detections the detector gave)."""
+    both, latencies, the detections the detector gave); each request's stage
+    seconds are appended to ``stages`` when it is a list."""
     import numpy as np
 
     from video_classification_tpu_torch.config import load_model_cfg
@@ -1292,6 +1380,8 @@ def serve_full_width(dev, root: str, videos, kernels, detector=None,
         log(f"  request {r}: {y['clips']} clips, {latencies[-1]:.3f} s, top-5 "
             + ", ".join(f"{c}:{p:.4f}" for c, p in y["top"]))
         log(f"    stage seconds: {json.dumps({k: round(v, 4) for k, v in timer.seconds.items()})}")
+        if stages is not None:
+            stages.append(dict(timer.seconds))
         timer.seconds.clear()
     counts = {k.__name__: k.launches for k in (*kernels, *absent)}
     log(f"  launches on the serving path: {json.dumps(counts)}")
@@ -1737,6 +1827,7 @@ calls = {
                            torch.zeros((1, 19999), device=d), 4, 0.5),
     "warp_bilinear": lambda: ext.warp_bilinear(im, z[:, :4], z, True),
     "label_components": lambda: ext.label_components(torch.zeros((8, 8), device=d), 8),
+    "irls_coefficients": lambda: ext.irls_coefficients(im, im, im, z, z, z, z[:, :4], 1e-6),
 }
 try:
     calls[sys.argv[1]]()
@@ -1747,7 +1838,7 @@ except Exception as e:
 
 
 def binding_errors():
-    """[20] each of the six bindings gets one malformed input that only the
+    """[20] each of the seven bindings gets one malformed input that only the
     binding's own checks refuse (the SOR schedule, a 65535-row mask,
     mismatched shapes), in a child process of its own: the child
     must print the Python exception and exit 0; one ended by a signal fails
@@ -1756,7 +1847,7 @@ def binding_errors():
 
     root = Path(__file__).resolve().parent
     names = ("flow_level", "sor_solve", "component_extents", "nms", "warp_bilinear",
-             "label_components")
+             "label_components", "irls_coefficients")
     children = {n: subprocess.Popen([sys.executable, "-c", BINDING_CHILD, n], cwd=root,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for n in names}
@@ -2022,8 +2113,9 @@ def train_res_full_width(dev, root: str, name: str, videos, kernels, absent):
 def cli_on_card(ensemble_root: str, labels):
     """[26] ``python -m video_classification_tpu_torch`` in a subprocess on
     the card: ``sparse-train`` on [21]'s materials (SPARSE_EPOCHS epochs)
-    and ``tools how-many-classes`` on a labels file of ``labels``; both must
-    exit 0, the second print the labels' min, max and class count."""
+    and ``tools how-many-classes`` on a labels file of ``labels``, at once
+    (the second does not touch the card); both must exit 0, the second
+    print the labels' min, max and class count."""
     from pathlib import Path
 
     here = Path(__file__).resolve().parent
@@ -2031,18 +2123,25 @@ def cli_on_card(ensemble_root: str, labels):
     labels_txt.write_text("".join(f"train/M_{i:05d}.avi train/K_{i:05d}.avi {label}\n"
                                   for i, label in enumerate(labels)))
     want = f"{min(labels)} {max(labels)} {len(set(labels))}"
-    for args in (["sparse-train", "--root", ensemble_root],
-                 ["tools", "how-many-classes", str(labels_txt)]):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "video_classification_tpu_torch", *args],
-                             cwd=here, capture_output=True, text=True, timeout=900)
-        tail = (out.stdout.strip().splitlines() or [""])[-1]
-        log(f"  {' '.join(args[:2])}: exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.2f} s; last line: {tail}")
-        if out.returncode != 0:
-            raise AssertionError(f"the CLI failed: {out.stderr.strip()[-2000:]}")
-    if not out.stdout.startswith(want):
-        raise AssertionError(f"how-many-classes printed {out.stdout!r}, expected {want!r}")
+    t0 = time.perf_counter()
+    children = [(args, subprocess.Popen(
+        [sys.executable, "-m", "video_classification_tpu_torch", *args], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for args in (["sparse-train", "--root", ensemble_root],
+                     ["tools", "how-many-classes", str(labels_txt)])]
+    for args, child in children:
+        try:
+            stdout, stderr = child.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            stdout, stderr = child.communicate()
+        tail = (stdout.strip().splitlines() or [""])[-1]
+        log(f"  {' '.join(args[:2])}: exit {child.returncode}; last line: {tail}")
+        if child.returncode != 0:
+            raise AssertionError(f"the CLI failed: {stderr.strip()[-2000:]}")
+    log(f"  both done in {time.perf_counter() - t0:.2f} s")
+    if not stdout.startswith(want):
+        raise AssertionError(f"how-many-classes printed {stdout!r}, expected {want!r}")
 
 
 # -- the offline chain: frame I/O, the stages, the IUV provider -------------------
@@ -2053,15 +2152,17 @@ CROP_STREAMS = ("CropHTAH", "CropLHand", "CropRHand", "CropLHandArm", "CropRHand
 
 
 def port_kernels():
-    """The six kernel wrappers, K1-K6."""
+    """The seven kernel wrappers, K1-K6 and the IRLS coefficients."""
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
     from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.irls import irls_coefficients
     from video_classification_tpu_torch.ops.label_components import label_components
     from video_classification_tpu_torch.ops.sor_solve import sor_solve
     from video_classification_tpu_torch.ops.warp import warp_bilinear
 
-    return (flow_level, component_extents, nms, sor_solve, warp_bilinear, label_components)
+    return (flow_level, component_extents, nms, sor_solve, warp_bilinear, label_components,
+            irls_coefficients)
 
 
 class Recorder:
@@ -2275,7 +2376,7 @@ def offline_chain_full_width(dev, work):
         counts = chain_counts("[28] chain", lambda: stages.run_stages(
             chain_cfg(root), stages.STAGES, SyntheticIUVProvider(), OFFLINE_SETS, io=io,
             device=dev, timer=timer), ("flow_level", "component_extents"),
-            ("nms", "sor_solve", "warp_bilinear", "label_components"))
+            ("nms", "sor_solve", "warp_bilinear", "label_components", "irls_coefficients"))
     seconds = {k: round(v, 4) for k, v in timer.seconds.items()}
     files = stage_files(root)
     log(f"  stage seconds {json.dumps(seconds)}")
@@ -2352,7 +2453,8 @@ def offline_densepose_full_width(dev, root):
         counts = chain_counts("[29] IUV and crops", lambda: stages.run_stages(
             chain_cfg(root), ("iuv", "crop"), provider, OFFLINE_SETS, io=ArrayFrameIO(),
             device=dev, timer=timer), ("component_extents", "nms"),
-            ("flow_level", "sor_solve", "warp_bilinear", "label_components"))
+            ("flow_level", "sor_solve", "warp_bilinear", "label_components",
+             "irls_coefficients"))
     seen, found = check_offline_detections(root)
     seconds = {k: round(v, 4) for k, v in timer.seconds.items()}
     log(f"  {seen} frames, {found} with a detection; seconds {json.dumps(seconds)}, per "
@@ -2687,7 +2789,7 @@ def v2_convert_full_width(dev, work):
     write_v2_fixture(fixture, io)
     log(f"  fixture: one {FRAMES}-frame 240x320 M_/K_ pair per set, sampled, in "
         f"{time.perf_counter() - t0:.2f} s")
-    per_op = ("sor_solve", "warp_bilinear", "label_components")
+    per_op = ("sor_solve", "warp_bilinear", "label_components", "irls_coefficients")
     runs = {
         "A variational + synthetic": ("variational", SyntheticIUVProvider, None,
                                       ("flow_level", "component_extents"), ("nms",) + per_op),
@@ -3341,7 +3443,8 @@ def train_parallel_full_width(root: str):
     synthetic videos: one epoch of one step and its eval; DEBUG writes no
     checkpoint, so a real epoch of one batch instead), both
     streams in threads on the one card, against ``train`` of each stream in
-    sequence: the wall times, and each stream's checkpoints within the
+    sequence (the CLI's ``main`` called for each in one process, as
+    train-parallel is one process): the wall times, and each stream's checkpoints within the
     train bars of the sequential run's; then conv3d_temporal_sharded over
     two gloo ranks at a res4 conv_a's full-width shape against the
     unsharded convolution (TF32 off)."""
@@ -3353,20 +3456,21 @@ def train_parallel_full_width(root: str):
             "DATA.SYNTHETIC_NUM_VIDEOS", "16", "DATA.SYNTHETIC_SEQ_LEN", "20"]
     names = ["slowfast-HTAH", "slowfast-Torso"]
 
-    def cli(*argv):
+    def python(*argv):
         t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "video_classification_tpu_torch", *argv],
-                             cwd=Path(__file__).resolve().parent, capture_output=True,
-                             text=True, timeout=WORKER_TIMEOUT_S)
+        out = subprocess.run([sys.executable, *argv], cwd=Path(__file__).resolve().parent,
+                             capture_output=True, text=True, timeout=WORKER_TIMEOUT_S)
         if out.returncode != 0:
-            raise AssertionError(f"{argv[:3]} exited {out.returncode}: {out.stderr[-3000:]}")
+            raise AssertionError(f"{argv[:4]} exited {out.returncode}: {out.stderr[-3000:]}")
         return out.stdout, time.perf_counter() - t0
 
     torch.cuda.empty_cache()
-    said, par_s = cli("train-parallel", *names, "--root", str(work / "par"), *opts)
-    seq_s = 0.0
-    for name in names:  # a root each: no stream warm-starts from another's checkpoint
-        seq_s += cli("train", name, "--root", str(work / "seq" / name), *opts)[1]
+    said, par_s = python("-m", "video_classification_tpu_torch", "train-parallel", *names,
+                         "--root", str(work / "par"), *opts)
+    # A root each: no stream warm-starts from another's checkpoint.
+    runs = [["train", name, "--root", str(work / "seq" / name), *opts] for name in names]
+    seq_s = python("-c", "import sys\nfrom video_classification_tpu_torch.__main__ import main\n"
+                   f"for argv in {runs!r}:\n    if main(argv):\n        sys.exit(1)\n")[1]
     log(f"  train-parallel {' '.join(names)}: {par_s:.2f} s wall; sequential train of each: "
         f"{seq_s:.2f} s in all; " + "; ".join(
             line for line in said.splitlines() if line.startswith("stream ")))
@@ -3558,8 +3662,9 @@ def main() -> int:
 
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
-    from video_classification_tpu_torch.ops.flow import FlowParams
+    from video_classification_tpu_torch.ops.flow import FlowParams, _pyramid_shapes
     from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.irls import irls_coefficients
     from video_classification_tpu_torch.ops.label_components import label_components
     from video_classification_tpu_torch.ops.sor_solve import sor_solve
     from video_classification_tpu_torch.ops.warp import warp_bilinear
@@ -3585,7 +3690,7 @@ def main() -> int:
     log("[5] K3 nms vs plain (the serving batches of the same detector run)")
     k3 = check_nms(dev, calls)
 
-    per_op = (sor_solve, warp_bilinear, label_components)
+    per_op = (sor_solve, warp_bilinear, label_components, irls_coefficients)
     log("[6] serving slowfast-HTAH at full width, synthetic detector")
     synth_counts, synth_lat, _ = serve_full_width(
         dev, root, videos, (flow_level, component_extents), absent=per_op)
@@ -3609,15 +3714,29 @@ def main() -> int:
         + f"; {smi}")
     log("[11] K5 warp_bilinear vs plain")
     k5 = check_warp(dev, pyramids)
+    log("[43] the per-op inner's IRLS coefficients (irls_coefficients) vs plain")
+    k_irls = check_irls(dev, pyramids)
     del pyramids
     log("[12] K6 label_components vs plain")
     k6 = check_label_components(dev)
     log("[13] per-op flow path on the card vs the checked-in goldens")
     goldens = check_goldens(dev)
     log("[14] serving slowfast-HTAH at full width, synthetic detector, per-op flow")
+    op_params, op_stages = FlowParams(fuse_level="off"), []
     op_counts, op_lat, _ = serve_full_width(
-        dev, root, videos, (sor_solve, warp_bilinear, component_extents),
-        flow_params=FlowParams(fuse_level="off"), absent=(flow_level, label_components))
+        dev, root, videos, (sor_solve, warp_bilinear, component_extents, irls_coefficients),
+        flow_params=op_params, absent=(flow_level, label_components), stages=op_stages)
+    # One IRLS kernel and one K4 solve an inner: levels x n_outer x n_inner
+    # a clip window, two windows a request.
+    inners = (len(_pyramid_shapes(240, 320, op_params.ratio, op_params.min_width))
+              * op_params.n_outer * op_params.n_inner * 2)
+    for k in (irls_coefficients, sor_solve):
+        if op_counts[k.__name__] != inners * len(op_lat):
+            raise AssertionError(f"[14] {k.__name__}: {op_counts[k.__name__]} launches, "
+                                 f"not {inners} a request")
+    op_flow_s = [round(st["flow"], 4) for st in op_stages]
+    log(f"  per-op flow stage seconds {op_flow_s} (IRLS kernel and K4 {inners} launches a "
+        f"request); {smi}")
     log("[15] small serve on the per-op flow path: card vs cpu")
     serve_small_against_cpu(dev, root, fuse_level="off")
     serve_small_against_cpu(dev, root, n_inner=2)
@@ -3637,7 +3756,8 @@ def main() -> int:
         online_videos = synthetic_videos(6)
         train_counts = train_online(dev, roots["online"], online_videos,
                                     (flow_level, component_extents),
-                                    (nms, sor_solve, warp_bilinear, label_components))
+                                    (nms, sor_solve, warp_bilinear, label_components,
+                                     irls_coefficients))
         log("[19] small train step: card vs cpu")
         train_small_against_cpu(dev, roots["small"])
     finally:
@@ -3754,6 +3874,9 @@ def main() -> int:
         if name == "nms":
             row["past_8192"] = k3_big
             row["box_head_alone"] = k3_box_head
+        if name == "irls_coefficients":
+            row["levels"] = k["levels"]
+            row["per_op_flow_stage_s"] = op_flow_s
         return row
 
     kernels = [
@@ -3768,6 +3891,9 @@ def main() -> int:
               op_counts["warp_bilinear"], k5, k5["library_ms"]),
         entry("label_components", "label_components.cu",
               "ops/pallas_components.py:50", op_counts["label_components"], k6),
+        # No Pallas kernel: XLA's fusion of the per-op level's IRLS terms.
+        entry("irls_coefficients", "irls.cu", "ops/flow.py:346-373",
+              op_counts["irls_coefficients"], k_irls),
     ]
     log(f"done in {time.perf_counter() - t_start:.1f} s; K2 iterations "
         f"{k2['iters']}, K6 rounds {k6['rounds']}; synthetic-detector launches "

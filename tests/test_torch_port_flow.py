@@ -26,9 +26,27 @@ from video_classification_tpu.ops.pallas_flow import flow_level_fused_pallas
 from video_classification_tpu_torch.ops import flow as tflow
 from video_classification_tpu_torch.ops.flow_level import (
     flow_level, flow_level_reference)
-from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
+from torch_port_support import computed_at_once, one_torch_thread  # noqa: F401  (autouse)
 
 GOLDENS = Path(__file__).parent / "goldens"
+
+
+@pytest.fixture(scope="module")
+def flows_240x320():
+    """The 240x320 flows the golden tests below compare, computed once for
+    the module and at once (``computed_at_once``): the port's video flow at
+    tol 0 on the sinusoid and on the natural frames, and the JAX package's
+    fused level run in interpret mode on the natural frames."""
+    tp = tflow.FlowParams(fuse_outer_tol=0.0)
+    jp = jflow.FlowParams(fuse_level="interpret", fuse_outer_tol=0.0)
+    return computed_at_once({
+        "flow_240x320": lambda: tflow.video_flow_uint8(
+            torch.from_numpy(make_frames()), tp).numpy(),
+        "natural": lambda: tflow.video_flow_uint8(
+            torch.from_numpy(make_natural_frames()), tp).numpy(),
+        "natural_fused_pallas": lambda: np.asarray(jflow.video_flow_uint8(
+            jnp.asarray(make_natural_frames()), jp)),
+    })
 
 
 def _pairs(b, h, w, seed):
@@ -154,13 +172,16 @@ def test_encode_flow_uint8_matches_jax():
      dict(n_outer=2, n_sor=10, min_width=16)),
     ("flow_240x320", make_frames, {}),
 ])
-def test_video_flow_matches_golden(golden, frames, params):
+def test_video_flow_matches_golden(golden, frames, params, flows_240x320):
     """The port's video flow at tol 0 against the checked-in goldens (made by
     the JAX package's XLA path), under the golden test's +-1 / 99.9 % bar."""
     want = np.load(GOLDENS / f"{golden}.npz")["flow_images"]
-    got = tflow.video_flow_uint8(
-        torch.from_numpy(frames()),
-        tflow.FlowParams(fuse_outer_tol=0.0, **params)).numpy()
+    if golden in flows_240x320:
+        got = flows_240x320[golden]
+    else:
+        got = tflow.video_flow_uint8(
+            torch.from_numpy(frames()),
+            tflow.FlowParams(fuse_outer_tol=0.0, **params)).numpy()
     assert got.shape == want.shape
     _uint8_within(got, want, 0.999, 1)
 
@@ -178,7 +199,7 @@ def _border_distance(h, w):
 FUSED_WHOLE_FRAME_PM1 = 0.99262
 
 
-def test_video_flow_natural_240x320_matches_fused_pallas():
+def test_video_flow_natural_240x320_matches_fused_pallas(flows_240x320):
     """The natural-statistics 240x320 golden was made by the XLA path; K1
     keeps the fused-level Pallas kernel's semantics (the +-8 px warp clamp),
     which depart from it where the solve diverges along the border of this
@@ -187,14 +208,9 @@ def test_video_flow_natural_240x320_matches_fused_pallas():
     border, +-1 on FUSED_WHOLE_FRAME_PM1 of the whole frame), and against
     the golden at the golden's own bar (+-2 / 99.5 %) away from the border
     and no worse than the Pallas kernel over the whole frame."""
-    frames = make_natural_frames()
     want = np.load(GOLDENS / "flow_natural_240x320.npz")["flow_images"].astype(np.int32)
-    fused = np.asarray(jflow.video_flow_uint8(
-        jnp.asarray(frames), jflow.FlowParams(fuse_level="interpret",
-                                              fuse_outer_tol=0.0))).astype(np.int32)
-    got = tflow.video_flow_uint8(
-        torch.from_numpy(frames), tflow.FlowParams(fuse_outer_tol=0.0)).numpy()
-    got = got.astype(np.int32)
+    fused = flows_240x320["natural_fused_pallas"].astype(np.int32)
+    got = flows_240x320["natural"].astype(np.int32)
     assert got.shape == fused.shape == want.shape == (3, 240, 320, 3)
     inner = _border_distance(240, 320) >= 8
     _uint8_within(got[:, inner], fused[:, inner], 0.999, 1)

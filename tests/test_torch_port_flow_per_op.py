@@ -28,7 +28,7 @@ from test_flow_golden import SMALL_PARAMS, make_frames, make_natural_frames
 from test_torch_port_flow import _border_distance, _pairs, _uint8_within
 from video_classification_tpu.ops import flow as jflow
 from video_classification_tpu_torch.ops import flow as tflow
-from torch_port_support import one_torch_thread  # noqa: F401  (autouse)
+from torch_port_support import computed_at_once, one_torch_thread  # noqa: F401  (autouse)
 
 GOLDENS = Path(__file__).parent / "goldens"
 # Whole-frame fraction of the natural 240x320 golden within +-2 that the
@@ -42,6 +42,29 @@ NATURAL_WHOLE_FRAME_PM2 = 0.99336
 
 def _jax_params(**kw):
     return jflow.FlowParams(backend="xla", warp="gather", fuse_level="off", **kw)
+
+
+def _sinusoid_kw(n_inner):
+    return dict(n_outer=3, n_sor=10, min_width=16, n_inner=n_inner)
+
+
+@pytest.fixture(scope="module")
+def flows():
+    """The module's largest video flows, computed once and at once
+    (``computed_at_once``): the per-op path's 240x320 flows of the sinusoid
+    and the natural frames, which the golden tests compare, and the JAX
+    package's per-op video flow of the 56x72 sinusoid with one and two
+    inners, which test_video_flow_per_op_matches_jax compares."""
+    p = tflow.FlowParams(fuse_level="off")
+    small = make_frames(seed=3, t=4, h=56, w=72)
+    return computed_at_once({
+        "flow_240x320": lambda: tflow.video_flow_uint8(
+            torch.from_numpy(make_frames()), p).numpy(),
+        "natural": lambda: tflow.video_flow_uint8(
+            torch.from_numpy(make_natural_frames()), p).numpy(),
+        **{f"jax_sinusoid_{n}": (lambda n=n: np.asarray(jflow.video_flow_uint8(
+            jnp.asarray(small), _jax_params(**_sinusoid_kw(n))))) for n in (1, 2)},
+    })
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
@@ -81,15 +104,15 @@ def test_coarse2fine_per_op_matches_jax(route):
 
 
 @pytest.mark.parametrize("n_inner", [1, 2])
-def test_video_flow_per_op_matches_jax(n_inner):
+def test_video_flow_per_op_matches_jax(n_inner, flows):
     """On the sinusoid frames: the natural-statistics texture at this size
     drives both solvers to flows of 40 px on a 48x64 frame, where 1-ulp
     differences grow without bound."""
     frames = make_frames(seed=3, t=4, h=56, w=72)
-    kw = dict(n_outer=3, n_sor=10, min_width=16, n_inner=n_inner)
-    want = np.asarray(jflow.video_flow_uint8(jnp.asarray(frames), _jax_params(**kw)))
+    want = flows[f"jax_sinusoid_{n_inner}"]
     got = tflow.video_flow_uint8(torch.from_numpy(frames),
-                                 tflow.FlowParams(fuse_level="off", **kw)).numpy()
+                                 tflow.FlowParams(fuse_level="off",
+                                                  **_sinusoid_kw(n_inner))).numpy()
     assert got.shape == want.shape == (4, 56, 72, 3) and got.dtype == np.uint8
     _uint8_within(got, want, 0.999, 1)
 
@@ -98,23 +121,25 @@ def test_video_flow_per_op_matches_jax(n_inner):
     ("flow_240x320", make_frames, {}),
     ("flow_natural_96x128", lambda: make_natural_frames(h=96, w=128), SMALL_PARAMS),
 ])
-def test_video_flow_per_op_matches_golden(golden, frames, params):
+def test_video_flow_per_op_matches_golden(golden, frames, params, flows):
     """The goldens' own path and parameters, at their tests' +-1 / 99.9 %
     bar (tests/test_flow_golden.py:55,123)."""
     want = np.load(GOLDENS / f"{golden}.npz")["flow_images"]
-    got = tflow.video_flow_uint8(torch.from_numpy(frames()),
-                                 tflow.FlowParams(fuse_level="off", **params)).numpy()
+    if golden in flows:
+        got = flows[golden]
+    else:
+        got = tflow.video_flow_uint8(torch.from_numpy(frames()),
+                                     tflow.FlowParams(fuse_level="off", **params)).numpy()
     assert got.shape == want.shape
     _uint8_within(got, want, 0.999, 1)
 
 
-def test_video_flow_per_op_natural_240x320_golden():
+def test_video_flow_per_op_natural_240x320_golden(flows):
     """The natural-statistics golden at its test's bar, +-2 on >= 99.5 %
     (tests/test_flow_golden.py:114), beyond 8 px of the border; over the
     whole frame at the fraction the per-op path reaches, less 0.1 %."""
     want = np.load(GOLDENS / "flow_natural_240x320.npz")["flow_images"]
-    got = tflow.video_flow_uint8(torch.from_numpy(make_natural_frames()),
-                                 tflow.FlowParams(fuse_level="off")).numpy()
+    got = flows["natural"]
     assert got.shape == want.shape == (3, 240, 320, 3)
     inner = _border_distance(240, 320) >= 8
     _uint8_within(got[:, inner], want[:, inner], 0.995, 2)
@@ -155,9 +180,10 @@ def test_fuse_level_rejects_unknown_values():
     (dict(n_inner=2, fuse_level="on"), "per-op"),
     (dict(n_inner=3, fuse_level="off"), "per-op")])
 def test_dispatch_calls_one_path(monkeypatch, kw, path):
-    """The fused level calls only K1's wrapper, the per-op level only K4's
-    and K5's; a call of a wrapper on a CUDA tensor is a launch."""
-    calls = {"flow_level": 0, "sor_solve": 0, "warp_bilinear": 0}
+    """The fused level calls only K1's wrapper, the per-op level only K4's,
+    K5's and the IRLS coefficients'; a call of a wrapper on a CUDA tensor is
+    a launch."""
+    calls = {"flow_level": 0, "sor_solve": 0, "warp_bilinear": 0, "irls_coefficients": 0}
 
     def counting(name):
         real = getattr(tflow, name)
@@ -174,7 +200,9 @@ def test_dispatch_calls_one_path(monkeypatch, kw, path):
     tflow.coarse2fine_flow(torch.from_numpy(im1), torch.from_numpy(im2), p)
     levels = len(tflow._pyramid_shapes(24, 28, p.ratio, p.min_width))
     if path == "fused":
-        assert calls == {"flow_level": levels, "sor_solve": 0, "warp_bilinear": 0}
+        assert calls == {"flow_level": levels, "sor_solve": 0, "warp_bilinear": 0,
+                         "irls_coefficients": 0}
     else:
         assert calls == {"flow_level": 0, "sor_solve": levels * 2 * p.n_inner,
-                         "warp_bilinear": levels * 2}
+                         "warp_bilinear": levels * 2,
+                         "irls_coefficients": levels * 2 * p.n_inner}

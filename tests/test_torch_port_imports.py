@@ -173,6 +173,7 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     from video_classification_tpu_torch.detect.nms import nms
     from video_classification_tpu_torch.ops.component_extents import component_extents
     from video_classification_tpu_torch.ops.flow_level import flow_level
+    from video_classification_tpu_torch.ops.irls import irls_coefficients
     from video_classification_tpu_torch.ops.label_components import label_components
     from video_classification_tpu_torch.ops.sor_solve import sor_solve
     from video_classification_tpu_torch.ops.warp import warp_bilinear
@@ -195,8 +196,9 @@ def test_cpu_kernels_never_build(tmp_path, monkeypatch):
     assert du.shape == dv.shape == (1, 8, 9)
     assert warp_bilinear(im, z, z).shape == (1, 8, 9, 3)
     assert label_components(torch.ones((1, 4, 4), dtype=torch.bool)).max() == 0
+    assert len(irls_coefficients(im, im, im, z, z, z, z, 1e-6)) == 9
     launches = (flow_level, component_extents, nms, sor_solve, warp_bilinear,
-                label_components)
+                label_components, irls_coefficients)
     assert all(k.launches == 0 for k in launches)
 
 

@@ -242,7 +242,8 @@ def test_profile_groups_name_every_kernel():
 
     groups = {"flow_level.cu": "flow_level", "sor_solve.cu": "sor_solve",
               "component_extents.cu": "component_extents", "nms.cu": "nms",
-              "warp.cu": "warp_bilinear", "label_components.cu": "label_components"}
+              "warp.cu": "warp_bilinear", "label_components.cu": "label_components",
+              "irls.cu": "irls_coefficients"}
     pattern = r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\("
     for source, group in groups.items():
         names = re.findall(pattern, (cuda.CSRC / source).read_text())

@@ -5,7 +5,10 @@ one-thread-per-core intra-op pool in each of them oversubscribes the CPU
 (measured: the port's files took 5x longer in parallel). The port's tests
 run torch single-threaded, and put the setting back afterwards.
 
-``randomised_variables`` fills a flax variable tree of shapes (from
+``computed_at_once`` runs a module's few large, independent CPU computations
+(the 240x320 flows of the golden tests) in threads of their own, with a few
+intra-op threads each, and hands their results to the tests that compare
+them. ``randomised_variables`` fills a flax variable tree of shapes (from
 ``jax.eval_shape`` of a model's init, so nothing compiles) from a numpy
 seed, for weights that both packages can be given; ``detector_variables``
 does so for the DensePose detector. ``configure_serving``
@@ -52,6 +55,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def computed_at_once(jobs, intra_op_threads: int = 3):
+    """{name: job()} for a dict of independent jobs, run in one thread each
+    while torch uses ``intra_op_threads`` threads (put back afterwards).
+    torch and XLA release the GIL in their kernels, so the jobs overlap;
+    each computes what it would alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(intra_op_threads)
+    try:
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = {name: pool.submit(job) for name, job in jobs.items()}
+            return {name: f.result() for name, f in futures.items()}
+    finally:
+        torch.set_num_threads(n)
 
 
 def detector_variables(shapes, seed: int):

@@ -25,7 +25,10 @@ mask's executed iterations and the time per dependent iteration:
 
 Every case is first held exactly to the plain version. A checkout without
 the wide words (its K2 binding refuses masks past 255 px a side) prints
-that instead of a time for them. Prints the package's path, one
+that instead of a time for them. The executed iterations come from one run
+of the plain propagation, ROOT's ``component_extents_rounds`` and
+``label_components_rounds``: a checkout without them is timed with --flow
+only. Prints the package's path, one
 JSON line per case and the card's nvidia-smi line. Compare two checkouts by
 running each in turn, A B B A, in one call.
 """

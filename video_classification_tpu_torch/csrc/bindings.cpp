@@ -1,12 +1,12 @@
 // PyTorch bindings of the hand-written CUDA kernels of this directory:
 // flow_level (flow_level.cu), component_extents (component_extents.cu), nms
-// (nms.cu), sor_solve (sor_solve.cu), warp_bilinear (warp.cu) and
-// label_components (label_components.cu), and the routes the last two's
-// propagations take (cluster_strips.cuh).
+// (nms.cu), sor_solve (sor_solve.cu), warp_bilinear (warp.cu),
+// label_components (label_components.cu) and irls_coefficients (irls.cu),
+// and the routes K2's and K6's propagations take (cluster_strips.cuh).
 // Built together as one extension by utils/cuda.py::build; the Python
 // wrappers (ops/flow_level.py, ops/component_extents.py, detect/nms.py,
-// ops/sor_solve.py, ops/warp.py, ops/label_components.py) call these on CUDA
-// tensors only. Only this file includes PyTorch's headers: the .cu files
+// ops/sor_solve.py, ops/warp.py, ops/label_components.py, ops/irls.py) call
+// these on CUDA tensors only. Only this file includes PyTorch's headers: the .cu files
 // have plain C++ launchers, which keeps their compilation short.
 
 #include <ATen/cuda/CUDAContext.h>
@@ -51,6 +51,11 @@ int64_t label_components_scratch_bytes(int B, int H, int W);
 cudaError_t label_components_launch(const uint8_t* masks, int32_t* out,
                                     void* scratch, int B, int H, int W,
                                     int max_iters, cudaStream_t st);
+cudaError_t irls_coefficients_launch(const float* im1, const float* warped,
+                                     const float* warped_grad, const float* u,
+                                     const float* v, const float* du,
+                                     const float* dv, float* out, int B, int H,
+                                     int W, int C, float eps, cudaStream_t st);
 
 namespace {
 
@@ -267,6 +272,48 @@ torch::Tensor label_components(const torch::Tensor& masks, int64_t max_iters) {
   return out;
 }
 
+// (a11, a12, a22, b1, b2, wu, wd, wl, wr) as one 9 x (B, H, W) tensor: see
+// ops/irls.py::irls_coefficients.
+torch::Tensor irls_coefficients(
+    const torch::Tensor& im1_in, const torch::Tensor& warped_in,
+    const torch::Tensor& warped_grad_in, const torch::Tensor& u_in,
+    const torch::Tensor& v_in, const torch::Tensor& du_in,
+    const torch::Tensor& dv_in, double eps) {
+  const auto im1 = cuda_f32(im1_in, "im1");
+  const auto warped = cuda_f32(warped_in, "warped");
+  const auto warped_grad = cuda_f32(warped_grad_in, "warped_grad");
+  TORCH_CHECK(im1.dim() == 4 && warped.sizes() == im1.sizes() &&
+                  warped_grad.sizes() == im1.sizes(),
+              "im1, warped, warped_grad must be (B, H, W, C) alike");
+  const int64_t B = im1.size(0), H = im1.size(1), W = im1.size(2),
+                C = im1.size(3);
+  TORCH_CHECK(B > 0 && B <= 65535 && H > 0 && W > 0 && C > 0,
+              "irls_coefficients: need 1 <= B <= 65535 and H, W, C >= 1, got (",
+              B, ", ", H, ", ", W, ", ", C, ")");
+  TORCH_CHECK(9 * B * H * W < (int64_t{1} << 31) &&
+                  B * H * W * C < (int64_t{1} << 31),
+              "irls_coefficients: 9*B*H*W and B*H*W*C must be < 2**31");
+  static const char* names[4] = {"u", "v", "du", "dv"};
+  const torch::Tensor* in[4] = {&u_in, &v_in, &du_in, &dv_in};
+  std::vector<torch::Tensor> flow;
+  for (int f = 0; f < 4; ++f) {
+    flow.push_back(cuda_f32(*in[f], names[f]));
+    TORCH_CHECK(flow[f].dim() == 3 && flow[f].size(0) == B &&
+                    flow[f].size(1) == H && flow[f].size(2) == W,
+                names[f], " must be (B, H, W) = (", B, ", ", H, ", ", W, ")");
+  }
+  const c10::cuda::CUDAGuard guard(im1.device());
+  auto out = torch::empty({9, B, H, W}, im1.options());
+  check_launch(irls_coefficients_launch(
+                   im1.data_ptr<float>(), warped.data_ptr<float>(),
+                   warped_grad.data_ptr<float>(), flow[0].data_ptr<float>(),
+                   flow[1].data_ptr<float>(), flow[2].data_ptr<float>(),
+                   flow[3].data_ptr<float>(), out.data_ptr<float>(), B, H, W,
+                   C, (float)eps, at::cuda::getCurrentCUDAStream()),
+               "irls_coefficients");
+  return out;
+}
+
 // The route each propagation takes for H x W masks (cluster_strips.cuh):
 // "narrow" or "wide" words on the thread-block cluster, or "device" memory.
 std::string component_extents_route_of(int64_t H, int64_t W) {
@@ -292,6 +339,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sor_solve", &sor_solve);
   m.def("warp_bilinear", &warp_bilinear);
   m.def("label_components", &label_components);
+  m.def("irls_coefficients", &irls_coefficients);
   m.def("component_extents_route", &component_extents_route_of);
   m.def("label_components_route", &label_components_route_of);
   m.def("nms_route", &nms_route_of);

@@ -21,7 +21,7 @@ ops: the CPU path and the kernel's oracle on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -73,15 +73,11 @@ def _pool(x: torch.Tensor, op, fill: int) -> torch.Tensor:
     return n
 
 
-def component_extents_reference(masks: torch.Tensor,
-                                max_iters: Optional[int] = None) -> Extents:
-    """The kernel's propagation with plain tensor ops (any device).
-
-    All masks iterate together until none changes; a converged mask is a
-    fixed point, so extra iterations leave it as it is."""
+def component_extents_rounds(masks: torch.Tensor) -> Iterator[Extents]:
+    """The plain propagation one round at a time: the extents before the
+    first round, then after each round, ending with the first round that
+    changes nothing (every mask at its fixed point)."""
     b, h, w = masks.shape
-    if max_iters is None:
-        max_iters = h + w
     fg = masks != 0
     dev = masks.device
     rows = torch.arange(h, dtype=torch.int32, device=dev).view(1, h, 1).expand(b, h, w)
@@ -90,13 +86,28 @@ def component_extents_reference(masks: torch.Tensor,
     neg = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
     state = (torch.where(fg, rows, inf), torch.where(fg, rows, neg),
              torch.where(fg, cols, inf), torch.where(fg, cols, neg))
-    for _ in range(max_iters):
+    yield state
+    while True:
         new = (torch.where(fg, _pool(state[0], torch.minimum, INT32_MAX), inf),
                torch.where(fg, _pool(state[1], torch.maximum, -1), neg),
                torch.where(fg, _pool(state[2], torch.minimum, INT32_MAX), inf),
                torch.where(fg, _pool(state[3], torch.maximum, -1), neg))
         changed = any(bool((n != s).any()) for n, s in zip(new, state))
         state = new
+        yield state
         if not changed:
+            return
+
+
+def component_extents_reference(masks: torch.Tensor,
+                                max_iters: Optional[int] = None) -> Extents:
+    """The kernel's propagation with plain tensor ops (any device).
+
+    All masks iterate together until none changes; a converged mask is a
+    fixed point, so extra iterations leave it as it is."""
+    if max_iters is None:
+        max_iters = masks.shape[1] + masks.shape[2]
+    for k, state in enumerate(component_extents_rounds(masks)):
+        if k == max_iters:
             break
     return state

@@ -14,9 +14,10 @@ one of two paths, as in the JAX package:
   * the per-op level (``_flow_level_per_op``), the JAX package's XLA path,
     which made the checked-in flow goldens: per-image gradients averaged, an
     unclamped warp (kernel K5, ``ops/warp.py``), every outer run, and
-    ``n_inner`` IRLS solves per outer, each warm-started from the previous
-    one (kernel K4, ``ops/sor_solve.py``). Taken when ``fuse_level`` is
-    "off" or ``n_inner != 1``.
+    ``n_inner`` inners per outer, each the IRLS coefficients (one kernel,
+    ``ops/irls.py``) and a solve warm-started from the previous one (kernel
+    K4, ``ops/sor_solve.py``). Taken when ``fuse_level`` is "off" or
+    ``n_inner != 1``.
 
 The JAX package's ``backend``, ``warp``, ``warp_tiers``, ``fuse_stack`` and
 ``fuse_warp_radius`` choose between TPU routes and have no counterpart here:
@@ -30,7 +31,7 @@ rounded as XLA:CPU rounds them, contracted in float32.
 
 A level computes XLA:CPU's arithmetic: every multiply-add that XLA:CPU fuses
 into one rounding, compiling the JAX package's ``_flow_level``, is an exact
-``ops/fma.fma_f32`` here (``_normal_equations``, ``channel_dot``,
+``ops/fma.fma_f32`` here (``ops/irls.py``,
 ``ops/flow_level.sum_of_squares``, ``ops/sor_solve.py``, ``ops/warp.py``),
 so that given XLA:CPU's rsqrt each outer of the per-op level is bit-equal
 to that function's at every level of the 240x320 and 96x128 pyramids, and
@@ -57,8 +58,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .fma import fma_f32, rsqrt_f32
-from .flow_level import _edge_weights, _grad_xy, flow_level, sum_of_squares
+from .fma import rsqrt_f32
+from .flow_level import flow_level
+from .irls import data_terms, irls_coefficients
+# The plain pieces of the per-op inner, which the tests, chip_smoke.py and
+# time_components.py reach through this module.
+from .flow_level import _grad_xy, sum_of_squares  # noqa: F401
+from .irls import _normal_equations, channel_dot  # noqa: F401
 from .sor_solve import sor_solve
 from .warp import warp_bilinear
 
@@ -198,64 +204,44 @@ def _use_fused_level(p: FlowParams) -> bool:
     return p.n_inner == 1 and p.fuse_level != "off"
 
 
-def channel_dot(p: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """sum over the last dim of p * x * y as XLA:CPU reduces it: from 0, each
-    channel's (p * x) * y fused into the running sum (x and y may stack
-    several pairs in front of p's dims)."""
-    px = p * x
-    out = torch.zeros_like(px[..., 0])
-    for ch in range(p.shape[-1]):
-        out = fma_f32(px[..., ch], y[..., ch], out)
-    return out
+def _warps(im2: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+           n_inner: int = 1):
+    """(warped, warped_grad): im2 warped by (u, v) (K5), and the same warp as
+    the outer's gradients take it.
+
+    XLA:CPU rounds the warp in each fusion that holds it. With one inner the
+    gradients and ``it`` fuse the same order of the warp's first fused
+    multiply-add, so both are one tensor; when several inners reuse the
+    terms, the fusion that keeps the gradients in memory fuses the other
+    order (``ops/warp.bilinear_sum``), so K5 returns both."""
+    if n_inner > 1:
+        return warp_bilinear(im2, u, v, both_orders=True)
+    warped = warp_bilinear(im2, u, v)
+    return warped, warped
 
 
 def _outer_terms(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor, n_inner: int = 1):
     """(ix, iy, it), each (B, H, W, C), of one outer: im2 warped by (u, v)
-    (K5), the mean of both images' gradients, the temporal difference.
-
-    XLA:CPU rounds the warp in each fusion that holds it. With one inner the
-    gradients and ``it`` fuse the same order of the warp's first fused
-    multiply-add; when several inners reuse the terms, the fusion that
-    keeps the gradients in memory fuses the other order
-    (``ops/warp.bilinear_sum``), so K5 returns both."""
-    if n_inner > 1:
-        warped, warped_grad = warp_bilinear(im2, u, v, both_orders=True)
-    else:
-        warped = warped_grad = warp_bilinear(im2, u, v)
-    ix1, iy1 = _grad_xy(im1, 1, 2)
-    ix2, iy2 = _grad_xy(warped_grad, 1, 2)
-    return 0.5 * (ix1 + ix2), 0.5 * (iy1 + iy2), warped - im1
-
-
-def _normal_equations(ix, iy, it, u, v, du, dv, eps: float, rsqrt=rsqrt_f32):
-    """(a11, a12, a22, b1, b2, wu, wd, wl, wr), each (B, H, W), of one inner:
-    the IRLS data terms at the increments (du, dv) and the Charbonnier edge
-    weights of the total flow (u + du, v + dv). Every multiply-add is fused
-    where XLA:CPU fuses the JAX package's (``ops/fma.py``); ``rsqrt`` is the
-    reciprocal square root of psi and phi (the tests pass XLA:CPU's)."""
-    rho = fma_f32(iy, dv[..., None], fma_f32(ix, du[..., None], it))
-    psi = rsqrt(fma_f32(rho, rho, eps))
-    ux, uy = _grad_xy(u + du, 1, 2)
-    vx, vy = _grad_xy(v + dv, 1, 2)
-    phi = rsqrt(sum_of_squares(ux, uy, vx, vy) + eps)
-    a11, a12, a22, nb1, nb2 = channel_dot(psi, torch.stack([ix, ix, iy, ix, iy]),
-                                          torch.stack([ix, iy, iy, it, it]))
-    return (a11, a12, a22, -nb1, -nb2) + _edge_weights(phi)
+    (K5, ``_warps``), the mean of both images' gradients, the temporal
+    difference (``ops/irls.data_terms``)."""
+    return data_terms(im1, *_warps(im2, u, v, n_inner))
 
 
 def _flow_level_per_op(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
                        v: torch.Tensor, p: FlowParams, rsqrt=rsqrt_f32):
     """Refine (u, v) at one level along the JAX package's XLA path
     (``ops/flow.py::_flow_level``): per outer one warp (K5) and ``n_inner``
-    warm-started solves (K4); every outer runs. ``rsqrt`` as in
-    ``_normal_equations``."""
+    warm-started inners, each the IRLS coefficients (the IRLS kernel,
+    ``ops/irls.py``) and a solve (K4); every outer runs. ``rsqrt`` as in
+    ``_normal_equations`` (CPU tensors only)."""
     for _outer in range(p.n_outer):
-        ix, iy, it = _outer_terms(im1, im2, u, v, p.n_inner)
+        warped, warped_grad = _warps(im2, u, v, p.n_inner)
         du = torch.zeros_like(u)
         dv = torch.zeros_like(v)
         for _inner in range(p.n_inner):
-            coeffs = _normal_equations(ix, iy, it, u, v, du, dv, p.eps, rsqrt)
+            coeffs = irls_coefficients(im1, warped, warped_grad, u, v, du, dv,
+                                       p.eps, rsqrt)
             du, dv = sor_solve(*coeffs, u, v, p.n_sor, p.alpha, p.omega,
                                du, dv)
         u = u + du

@@ -43,12 +43,15 @@ import torch
 
 
 # A float64 whose bits below float32's last one read 1000...0 lies on a
-# float32 rounding midpoint; a nonzero one whose exponent field is below 897
-# is below float32's smallest normal.
+# float32 rounding midpoint.
 _BELOW_F32 = (1 << 29) - 1
 _MIDPOINT = 1 << 28
-_EXPONENT = 0x7FF << 52
-_NORMAL_F32 = (1023 - 126) << 52
+# A nonzero float64 below float32's smallest normal: the bits of |s|, less
+# one, below those of 2**-126 less one as unsigned integers (zero wraps to
+# the top), which signed integers compare with the sign bit flipped.
+_ABS = (1 << 63) - 1
+_SIGN = -(1 << 63)
+_TINY_BELOW = (((1023 - 126) << 52) - 1) ^ _SIGN
 
 
 def _f64(x):
@@ -92,10 +95,12 @@ def fma_f32(a, b, c) -> torch.Tensor:
         s = a * b + c
     out = s.float()
     bits = s.view(torch.int64)
-    risky = ((bits & _BELOW_F32) == _MIDPOINT).logical_or_(
-        ((bits & _EXPONENT) < _NORMAL_F32).logical_and_(s != 0))
-    if bool(risky.any()):
-        at = risky.nonzero(as_tuple=True)
+    tiny = (bits & _ABS).sub_(1).bitwise_xor_(_SIGN) < _TINY_BELOW
+    midpoint = (bits & _BELOW_F32) == _MIDPOINT
+    # A bool tensor's bytes' max is a much faster "any" on the CPU.
+    if s.numel() and (bool(tiny.view(torch.uint8).max())
+                      or bool(midpoint.view(torch.uint8).max())):
+        at = tiny.logical_or_(midpoint).nonzero(as_tuple=True)
         a, b, c = (x.expand(s.shape)[at] if isinstance(x, torch.Tensor) else x
                    for x in (a, b, c))
         out[at] = _round_to_odd_f32(a * b, c)

@@ -20,7 +20,7 @@ tensor ops: the CPU path and the kernel's oracle on the card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -51,24 +51,35 @@ def label_components(masks: torch.Tensor,
 label_components.launches = 0
 
 
+def label_components_rounds(masks: torch.Tensor) -> Iterator[torch.Tensor]:
+    """The plain propagation one round at a time: the labels before the
+    first round, then after each round, ending with the first round that
+    changes nothing (every mask at its fixed point)."""
+    b, h, w = masks.shape
+    fg = masks != 0
+    dev = masks.device
+    lin = torch.arange(h * w, dtype=torch.int32, device=dev).view(1, h, w)
+    inf = torch.full((b, h, w), INT32_MAX, dtype=torch.int32, device=dev)
+    labels = torch.where(fg, lin, inf)
+    yield labels
+    while True:
+        new = torch.where(fg, _pool(labels, torch.minimum, INT32_MAX), inf)
+        changed = bool((new != labels).any())
+        labels = new
+        yield labels
+        if not changed:
+            return
+
+
 def label_components_reference(masks: torch.Tensor,
                                max_iters: Optional[int] = None) -> torch.Tensor:
     """The kernel's propagation with plain tensor ops (any device).
 
     All masks iterate together until none changes; a converged mask is a
     fixed point, so extra rounds leave it as it is."""
-    b, h, w = masks.shape
     if max_iters is None:
-        max_iters = h + w
-    fg = masks != 0
-    dev = masks.device
-    lin = torch.arange(h * w, dtype=torch.int32, device=dev).view(1, h, w)
-    inf = torch.full((b, h, w), INT32_MAX, dtype=torch.int32, device=dev)
-    labels = torch.where(fg, lin, inf)
-    for _ in range(max_iters):
-        new = torch.where(fg, _pool(labels, torch.minimum, INT32_MAX), inf)
-        changed = bool((new != labels).any())
-        labels = new
-        if not changed:
+        max_iters = masks.shape[1] + masks.shape[2]
+    for k, labels in enumerate(label_components_rounds(masks)):
+        if k == max_iters:
             break
     return labels

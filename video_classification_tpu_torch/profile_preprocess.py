@@ -16,8 +16,9 @@ provider is the DensePose R-CNN at detectron2's test budget (depth 101,
 ResizeShortestEdge 800/1333, 1000 per level, 1000, 100 detections, chart
 pooler 28, ``chart_topk`` 1, batch 8, bfloat16) with seeded random weights,
 its stem and box-delta layers scaled (``random_provider``; K3), or the
-synthetic one. Prints one JSON object: stage seconds, launches of K1-K6 in
-the timed run, device kernel ms by group (``profile_serving``'s groups),
+synthetic one. Prints one JSON object: stage seconds, launches of K1-K6 and
+the IRLS kernel in the timed run, device kernel ms by group
+(``profile_serving``'s groups),
 the top kernels, and the busy share (profiled kernel time over the timed
 run's seconds). Raises without CUDA, and when a kernel of the chain did not
 launch or another did.
@@ -41,6 +42,7 @@ from .detect.nms import nms
 from .detect.provider import DensePoseIUVProvider
 from .ops.component_extents import component_extents
 from .ops.flow_level import flow_level
+from .ops.irls import irls_coefficients
 from .ops.label_components import label_components
 from .ops.sor_solve import sor_solve
 from .ops.warp import warp_bilinear
@@ -51,7 +53,8 @@ from .profile_serving import GROUPS, _device_us, _group
 from .utils.cuda import BUILD_DIR, resolve_device
 from .utils.profiling import StageTimer
 
-KERNELS = (flow_level, component_extents, nms, sor_solve, warp_bilinear, label_components)
+KERNELS = (flow_level, component_extents, nms, sor_solve, warp_bilinear, label_components,
+           irls_coefficients)
 SETS = ("train", "test")
 FRAMES = 130
 

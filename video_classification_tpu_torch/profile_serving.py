@@ -10,16 +10,17 @@ with ``--ensemble`` through the EnsemblePredictor of the five part streams
 so uniform mixing), with
 the synthetic detector or the DensePose detector (depth 101, the online
 budget, bfloat16, seeded random weights), and the fused flow level (K1) or
-the per-op one (``FlowParams(fuse_level="off")``: K5 warp and K4 solve per
-outer): one warm-up request, then
+the per-op one (``FlowParams(fuse_level="off")``: per outer the K5 warp,
+and per inner the IRLS coefficients' kernel and the K4 solve): one warm-up
+request, then
 ``--requests`` timed ones (host clock, synchronised), then one request under
 ``torch.profiler``. Prints the mean stage seconds of the timed requests
 (detect, flow, crops, network: synchronised at each stage's ends, in
 requests of their own; per stream with ``--ensemble``), the kernel time
 summed by
 group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
-warp_bilinear, K6 label_components, convolutions and matrix products, the
-rest), the launch counts, the top kernels, the kernel names in
+warp_bilinear, K6 label_components, the IRLS coefficients
+irls_coefficients, convolutions and matrix products, the rest), the launch counts, the top kernels, the kernel names in
 each named group, and the device's busy share: profiled kernel time over
 the unprofiled request time. Raises without CUDA, when a kernel of the
 chosen path did not launch or a kernel of the other flow path did, and when
@@ -57,9 +58,11 @@ PORT_KERNELS = (
     ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_tile_kernel")),
     ("warp_bilinear", ("warp_bilinear_kernel",)),
     ("label_components", ("labels_cluster_kernel", "labels_device_kernel")),
+    ("irls_coefficients", ("irls_kernel",)),
 )
 # The groups each flow path must launch; the other path's must not launch.
-FLOW_GROUPS = {"fused": ("flow_level",), "per-op": ("sor_solve", "warp_bilinear")}
+FLOW_GROUPS = {"fused": ("flow_level",),
+               "per-op": ("sor_solve", "warp_bilinear", "irls_coefficients")}
 LIBRARY_KERNELS = ("conv_and_matmul", (
     "conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "winograd", "fprop",
     "cutlass"))

@@ -186,12 +186,13 @@ def main(argv=None) -> int:
     from .detect.nms import nms
     from .ops.component_extents import component_extents
     from .ops.flow_level import flow_level
+    from .ops.irls import irls_coefficients
     from .ops.label_components import label_components
     from .ops.sor_solve import sor_solve
     from .ops.warp import warp_bilinear
 
     wrappers = (flow_level, component_extents, nms, sor_solve, warp_bilinear,
-                label_components)
+                label_components, irls_coefficients)
     make_s = None
 
     def make_batch():
@@ -225,7 +226,8 @@ def main(argv=None) -> int:
         for k in ("flow_level", "component_extents"):
             if launches[k] == 0:
                 raise RuntimeError(f"making a batch of clips never launched {k}")
-        for k in ("nms", "sor_solve", "warp_bilinear", "label_components"):
+        for k in ("nms", "sor_solve", "warp_bilinear", "label_components",
+                  "irls_coefficients"):
             if launches[k]:
                 raise RuntimeError(f"making a batch of clips launched {k}")
     print(json.dumps({

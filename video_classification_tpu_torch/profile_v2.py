@@ -19,7 +19,7 @@ one. Then ``V2Trainer`` at full width (SlowFast-R50 with (5, 2) pathways,
 batch 16 on one batch of random clips after three warm-up steps.
 
 Prints one JSON object: converter seconds and per video, the flow's pairs/s,
-K1-K6 launches per video in the timed run, device kernel ms by group
+K1-K6 and IRLS-kernel launches per video in the timed run, device kernel ms by group
 (``profile_serving``'s groups), the top kernels, the busy share (profiled
 kernel time over the timed run's seconds), and the train step's ms, clips/s
 and peak memory. Raises without CUDA, and when a kernel of the chain did not

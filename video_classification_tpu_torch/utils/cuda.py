@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext"
 SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
-           "sor_solve.cu", "warp.cu", "label_components.cu")
+           "sor_solve.cu", "warp.cu", "label_components.cu", "irls.cu")
 # Headers the .cu files include (sor_solve.cu and flow_level.cu share the
 # SOR tiles, component_extents.cu and label_components.cu the cluster
 # strips). ``load`` hashes only the sources, so ``cuda_flags`` carries a
@@ -104,8 +104,9 @@ def toolchain(env=os.environ) -> Dict[str, str]:
 def build():
     """The kernel extension (one function per ``.cu`` file of ``SOURCES``:
     ``flow_level``, ``component_extents``, ``nms``, ``sor_solve``,
-    ``warp_bilinear``, ``label_components``; and ``component_extents_route``
-    and ``label_components_route``), compiled at first use. Raises with the
+    ``warp_bilinear``, ``label_components``, ``irls_coefficients``; and
+    ``component_extents_route``, ``label_components_route`` and
+    ``nms_route``), compiled at first use. Raises with the
     compiler's output if the build fails."""
     global _ext
     with _lock:
