@@ -233,30 +233,3 @@ def test_untileable_batches_raise():
             check_tileable(*shape)
     z = torch.zeros((1, 4, 4))
     assert sor_solve(z + 1, *[z] * 10, 1, ALPHA, OMEGA)[0].shape == (1, 4, 4)
-
-
-def test_profile_groups_name_every_kernel():
-    """profile_serving puts every __global__ kernel of csrc/*.cu in its
-    file's group, and raises on a port kernel that no group names."""
-    from video_classification_tpu_torch.profile_serving import _group
-
-    groups = {"flow_level.cu": "flow_level", "sor_solve.cu": "sor_solve",
-              "component_extents.cu": "component_extents", "nms.cu": "nms",
-              "warp.cu": "warp_bilinear", "label_components.cu": "label_components",
-              "irls.cu": "irls_coefficients"}
-    pattern = r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\("
-    for source, group in groups.items():
-        names = re.findall(pattern, (cuda.CSRC / source).read_text())
-        assert names, source
-        for name in names:
-            assert _group(f"(anonymous namespace)::{name}(int, float*)") == group
-    assert set(groups) == {s for s in cuda.SOURCES if s.endswith(".cu")}
-    with pytest.raises(RuntimeError, match="in no group"):
-        _group("(anonymous namespace)::sor_kernel(Level, int, int)")
-    assert _group("void at::native::vectorized_elementwise_kernel<4>(int)") == "other"
-    # Template kernels: the port's by their names, PyTorch's own anonymous
-    # namespaces' left to "other".
-    assert _group("void (anonymous namespace)::extents_cluster_kernel<4>(int)") \
-        == "component_extents"
-    assert _group("void (anonymous namespace)::elementwise_kernel_with_index<int>(int)") \
-        == "other"

@@ -14,7 +14,8 @@ flow and crops), are queued there. Each batch carries an event recorded on
 that stream after it was made; the consumer's stream waits for the event
 before the batch is handed out, and every tensor is marked as used on the
 consumer's stream so the allocator does not recycle it early. An exception
-in the producer reaches the consumer when it asks for the batch.
+in the producer reaches the consumer when it asks for the batch. While a
+profiler records, the consumer's wait for a batch is the span ``data::wait``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 _END = object()
 
@@ -84,18 +87,19 @@ def prefetch_to_device(batches: Iterator[Dict[str, Any]], device,
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is _END:
-                break
-            if isinstance(item, _Error):
-                raise item.exc
-            batch, event = item
-            if cuda:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(event)
-                for v in batch.values():
-                    if isinstance(v, torch.Tensor) and v.is_cuda:
-                        v.record_stream(consumer)
+            with span("data::wait"):
+                item = q.get()
+                if item is _END:
+                    break
+                if isinstance(item, _Error):
+                    raise item.exc
+                batch, event = item
+                if cuda:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(event)
+                    for v in batch.values():
+                        if isinstance(v, torch.Tensor) and v.is_cuda:
+                            v.record_stream(consumer)
             yield batch
     finally:
         stop.set()

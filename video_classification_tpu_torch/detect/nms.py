@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 
 NEG = -3.0e38  # the suppressed-score sentinel of the Pallas kernel
 
@@ -39,10 +40,11 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"boxes must be (B, N, 4) and scores (B, N), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
-    if boxes.device.type == "cpu":
-        return nms_reference(boxes, scores, max_out, iou_threshold)
-    idx, mask = cuda.build().nms(boxes.float(), scores.float(), int(max_out),
-                                 float(iou_threshold))
+    with span("kernel::nms"):
+        if boxes.device.type == "cpu":
+            return nms_reference(boxes, scores, max_out, iou_threshold)
+        idx, mask = cuda.build().nms(boxes.float(), scores.float(), int(max_out),
+                                     float(iou_threshold))
     nms.launches += 1
     return idx, mask
 

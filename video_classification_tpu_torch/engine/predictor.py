@@ -16,7 +16,6 @@ Port of the JAX package's ``engine/predictor.py``:
 from __future__ import annotations
 
 import random as pyrandom
-from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -26,6 +25,7 @@ from ..config.defaults import load_model_cfg
 from ..models.sparse_fusion import SparseModel
 from ..pipeline.online import OnlineVideoDataset, flow_params_from_cfg, make_online_detector
 from ..utils.cuda import resolve_device
+from ..utils.profiling import span, stage
 from .checkpoint import load_checkpoint, read_state_dict
 from .model_manager import ModelManager
 from .sparse import PART_YAMLS, fusion_ckpt_dir
@@ -36,7 +36,11 @@ class Predictor:
 
     ``device`` defaults to CUDA (raising if there is none); ``state_dict``
     skips the checkpoint lookup; ``timer`` (utils/profiling.StageTimer)
-    records the 'detect', 'flow', 'crops' and 'network' stages."""
+    records the 'detect', 'flow', 'crops' and 'network' stages. ``requests``
+    counts the requests served, the ordinal their ``serve::request`` spans
+    carry."""
+
+    requests = 0
 
     def __init__(self, cfg, detector=None, flow_params=None, device=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -68,22 +72,23 @@ class Predictor:
         clips = torch.stack(ds.get_eval_clips(0, pyrandom.Random(0))["clips"])
         bs = max(1, int(self.cfg.CHALEARN.BATCH_SIZE))
         outs = []
-        stage = self.timer if self.timer is not None else (lambda _n: nullcontext())
         for start in range(0, clips.shape[0], bs):
             chunk = clips[start:start + bs]
-            with stage("network"):
+            with stage(self.timer, "network"):
                 logits = self.model(self.mm.normalize_and_prepare(chunk))
             outs.append(torch.softmax(logits.float(), dim=-1).cpu().numpy())
         return np.concatenate(outs, axis=0)
 
     def clip_scores(self, m_path, k_path=None) -> np.ndarray:
         """(n_clips, num_class) softmax scores of a video file pair."""
-        return self._scores(self.dataset(labels=[(str(m_path), k_path and str(k_path), 1)]))
+        with span("serve::stream", str(self.cfg.MODEL.NAME)):
+            return self._scores(self.dataset(labels=[(str(m_path), k_path and str(k_path), 1)]))
 
     def clip_scores_frames(self, rgb, depth=None) -> np.ndarray:
         """(n_clips, num_class) softmax scores of decoded frames: rgb
         (T, H, W, 3) uint8 BGR, depth (T, H, W, 1) uint8 or None (127 fill)."""
-        return self._scores(self.dataset(videos={0: (rgb, depth)}))
+        with span("serve::stream", str(self.cfg.MODEL.NAME)):
+            return self._scores(self.dataset(videos={0: (rgb, depth)}))
 
     @staticmethod
     def _rank(ps: np.ndarray, top_k: int) -> Dict:
@@ -95,10 +100,14 @@ class Predictor:
     def predict(self, m_path, k_path=None, top_k: int = 5) -> Dict:
         """Per-video prediction: {'probs': (C,), 'clips': n, 'top':
         [(label_1based, prob), ...]} from the mean clip score."""
-        return self._rank(self.clip_scores(m_path, k_path), top_k)
+        self.requests += 1
+        with span("serve::request", str(self.requests)):
+            return self._rank(self.clip_scores(m_path, k_path), top_k)
 
     def predict_frames(self, rgb, depth=None, top_k: int = 5) -> Dict:
-        return self._rank(self.clip_scores_frames(rgb, depth), top_k)
+        self.requests += 1
+        with span("serve::request", str(self.requests)):
+            return self._rank(self.clip_scores_frames(rgb, depth), top_k)
 
 
 class EnsemblePredictor:
@@ -109,7 +118,10 @@ class EnsemblePredictor:
     'bias' (C,)}) skips the checkpoint lookup; otherwise the
     lexicographically last file of ``sparse_fusion_ckpt/`` is loaded, the
     port's ``torch.save`` or the JAX package's flax msgpack file, and with
-    none the weight and bias are all ones (uniform mixing)."""
+    none the weight and bias are all ones (uniform mixing). ``requests``
+    counts the requests served, as ``Predictor.requests`` does."""
+
+    requests = 0
 
     def __init__(self, part_yamls: Optional[Sequence[str]] = None,
                  cfg_overrides: Optional[List[str]] = None,
@@ -148,13 +160,14 @@ class EnsemblePredictor:
     def _fuse(self, named_scores, top_k: int) -> Dict:
         # Part order must match SparseFusionDataset's sorted stacking: the
         # streams are sorted by name before fusing.
-        n = min(ps.shape[0] for _, ps in named_scores)
-        x = np.stack([ps[:n] for _, ps in named_scores], axis=1)  # (n, P, C)
-        if self.fusion is None:
-            self._load_fusion(x.shape[1], x.shape[2])
-        logits = self.fusion(torch.from_numpy(x).to(self.device))
-        # Softmax after the mean of the fused logits over the clips.
-        probs = torch.softmax(logits.mean(dim=0), dim=-1).cpu().numpy()
+        with span("stage::fuse"):
+            n = min(ps.shape[0] for _, ps in named_scores)
+            x = np.stack([ps[:n] for _, ps in named_scores], axis=1)  # (n, P, C)
+            if self.fusion is None:
+                self._load_fusion(x.shape[1], x.shape[2])
+            logits = self.fusion(torch.from_numpy(x).to(self.device))
+            # Softmax after the mean of the fused logits over the clips.
+            probs = torch.softmax(logits.mean(dim=0), dim=-1).cpu().numpy()
         order = np.argsort(-probs)[:top_k]
         return {
             "probs": probs,
@@ -170,11 +183,15 @@ class EnsemblePredictor:
         """{'probs': (C,), 'clips': n, 'per_stream': {name: top mean score},
         'top': [(label_1based, prob), ...]} of a video file pair; n is the
         fewest clips of any stream."""
-        return self._fuse([(name, p.clip_scores(m_path, k_path))
-                           for name, p in self._streams()], top_k)
+        self.requests += 1
+        with span("serve::request", str(self.requests)):
+            return self._fuse([(name, p.clip_scores(m_path, k_path))
+                               for name, p in self._streams()], top_k)
 
     def predict_frames(self, rgb, depth=None, top_k: int = 5) -> Dict:
         """``predict`` of decoded frames: rgb (T, H, W, 3) uint8 BGR, depth
         (T, H, W, 1) uint8 or None."""
-        return self._fuse([(name, p.clip_scores_frames(rgb, depth))
-                           for name, p in self._streams()], top_k)
+        self.requests += 1
+        with span("serve::request", str(self.requests)):
+            return self._fuse([(name, p.clip_scores_frames(rgb, depth))
+                               for name, p in self._streams()], top_k)

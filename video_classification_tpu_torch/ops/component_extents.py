@@ -26,6 +26,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 
 INT32_MAX = 2 ** 31 - 1
 NARROW_SIDE = 255  # the byte fields' limit (csrc/component_extents.cu kNarrowSide)
@@ -48,12 +49,13 @@ def component_extents(masks: torch.Tensor,
     b, h, w = masks.shape
     if max_iters is None:
         max_iters = h + w
-    if masks.device.type == "cpu":
-        return component_extents_reference(masks, max_iters)
-    if max(h, w) > MAX_SIDE:
-        raise ValueError(f"{h}x{w} masks exceed the kernel's 16-bit fields "
-                         f"(sides up to {MAX_SIDE})")
-    outs = cuda.build().component_extents(masks, int(max_iters))
+    with span("kernel::component_extents"):
+        if masks.device.type == "cpu":
+            return component_extents_reference(masks, max_iters)
+        if max(h, w) > MAX_SIDE:
+            raise ValueError(f"{h}x{w} masks exceed the kernel's 16-bit fields "
+                             f"(sides up to {MAX_SIDE})")
+        outs = cuda.build().component_extents(masks, int(max_iters))
     component_extents.launches += 1
     return tuple(outs)
 

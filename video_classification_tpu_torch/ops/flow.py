@@ -58,6 +58,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .fma import rsqrt_f32
 from .flow_level import flow_level
 from .irls import data_terms, irls_coefficients
@@ -256,6 +257,7 @@ def coarse2fine_flow(im1: torch.Tensor, im2: torch.Tensor,
     im1, im2: (B, H, W, C) in [0, 1]. Returns (u, v), each (B, H, W) float32,
     in pixels."""
     fused = _use_fused_level(params)
+    count("flow.pairs", im1.shape[0])
     im1 = im1.float()
     im2 = im2.float()
     b, h, w, _ = im1.shape

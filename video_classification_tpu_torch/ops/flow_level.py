@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 from .fma import fma_f32, rsqrt_f32
 from .sor_solve import (SCHEDULE, _shift_zero, check_tileable,
                         sor_solve_reference)
@@ -58,13 +59,14 @@ def flow_level(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
     the pre-clamp max|flow|. CPU tensors run ``flow_level_reference``; CUDA
     tensors launch the kernel (and raise if it cannot build or launch)."""
     _check_inputs(im1, im2, u, v)
-    if im1.device.type == "cpu":
-        return flow_level_reference(im1, im2, u, v, n_outer, n_sor, alpha,
-                                    omega, eps, r_cap, outer_tol)
-    check_tileable(*u.shape)
-    out = cuda.build().flow_level(im1, im2, u, v, int(n_outer), int(n_sor),
-                                  float(alpha), float(omega), float(eps),
-                                  int(r_cap), float(outer_tol), SCHEDULE)
+    with span("kernel::flow_level"):
+        if im1.device.type == "cpu":
+            return flow_level_reference(im1, im2, u, v, n_outer, n_sor, alpha,
+                                        omega, eps, r_cap, outer_tol)
+        check_tileable(*u.shape)
+        out = cuda.build().flow_level(im1, im2, u, v, int(n_outer), int(n_sor),
+                                      float(alpha), float(omega), float(eps),
+                                      int(r_cap), float(outer_tol), SCHEDULE)
     flow_level.launches += 1
     return out
 

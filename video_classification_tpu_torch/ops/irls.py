@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 from .flow_level import _edge_weights, _grad_xy, sum_of_squares
 from .fma import fma_f32, rsqrt_f32
 
@@ -105,14 +106,15 @@ def irls_coefficients(im1: torch.Tensor, warped: torch.Tensor,
     XLA:CPU's); CUDA tensors launch the kernel, which computes the correctly
     rounded rsqrt only, and raise if it cannot build or launch."""
     _check_inputs(im1, warped, warped_grad, u, v, du, dv)
-    if im1.device.type == "cpu":
-        return irls_coefficients_reference(im1, warped, warped_grad, u, v, du,
-                                           dv, eps, rsqrt)
-    if rsqrt is not rsqrt_f32:
-        raise ValueError("the IRLS kernel computes the correctly rounded rsqrt "
-                         "(rsqrt_f32) only")
-    out = cuda.build().irls_coefficients(im1, warped, warped_grad, u, v, du,
-                                         dv, float(eps))
+    with span("kernel::irls_coefficients"):
+        if im1.device.type == "cpu":
+            return irls_coefficients_reference(im1, warped, warped_grad, u, v, du,
+                                               dv, eps, rsqrt)
+        if rsqrt is not rsqrt_f32:
+            raise ValueError("the IRLS kernel computes the correctly rounded rsqrt "
+                             "(rsqrt_f32) only")
+        out = cuda.build().irls_coefficients(im1, warped, warped_grad, u, v, du,
+                                             dv, float(eps))
     irls_coefficients.launches += 1
     return tuple(out.unbind(0))
 

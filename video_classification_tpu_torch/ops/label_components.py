@@ -25,6 +25,7 @@ from typing import Iterator, Optional
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 from .component_extents import INT32_MAX, _pool
 
 
@@ -41,9 +42,10 @@ def label_components(masks: torch.Tensor,
         raise ValueError(f"{h}x{w} masks have more pixels than int32 labels")
     if max_iters is None:
         max_iters = h + w
-    if masks.device.type == "cpu":
-        return label_components_reference(masks, max_iters)
-    out = cuda.build().label_components(masks, int(max_iters))
+    with span("kernel::label_components"):
+        if masks.device.type == "cpu":
+            return label_components_reference(masks, max_iters)
+        out = cuda.build().label_components(masks, int(max_iters))
     label_components.launches += 1
     return out
 

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 from .fma import fma_f32
 
 FIELDS = ("a11", "a12", "a22", "b1", "b2", "wu", "wd", "wl", "wr", "u", "v",
@@ -85,12 +86,13 @@ def sor_solve(a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v, n_sor: int,
         dv0 = torch.zeros_like(a11)
     fields = (a11, a12, a22, b1, b2, wu, wd, wl, wr, u, v, du0, dv0)
     _check_inputs(fields)
-    if a11.device.type == "cpu":
-        return sor_solve_reference(*fields[:11], n_sor, alpha, omega,
-                                   du0, dv0)
-    check_tileable(*a11.shape)
-    du, dv = cuda.build().sor_solve(*fields, int(n_sor), float(alpha),
-                                    float(omega), SCHEDULE)
+    with span("kernel::sor_solve"):
+        if a11.device.type == "cpu":
+            return sor_solve_reference(*fields[:11], n_sor, alpha, omega,
+                                       du0, dv0)
+        check_tileable(*a11.shape)
+        du, dv = cuda.build().sor_solve(*fields, int(n_sor), float(alpha),
+                                        float(omega), SCHEDULE)
     sor_solve.launches += 1
     return du, dv
 

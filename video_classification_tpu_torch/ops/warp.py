@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda
+from ..utils.profiling import span
 from .fma import fma_f32
 
 
@@ -47,9 +48,10 @@ def warp_bilinear(im: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     ``warp_bilinear_reference``; CUDA tensors launch the kernel (and raise if
     it cannot build or launch)."""
     _check_inputs(im, u, v)
-    if im.device.type == "cpu":
-        return warp_bilinear_reference(im, u, v, both_orders)
-    out = cuda.build().warp_bilinear(im, u, v, bool(both_orders))
+    with span("kernel::warp_bilinear"):
+        if im.device.type == "cpu":
+            return warp_bilinear_reference(im, u, v, both_orders)
+        out = cuda.build().warp_bilinear(im, u, v, bool(both_orders))
     warp_bilinear.launches += 1
     return tuple(out) if both_orders else out[0]
 

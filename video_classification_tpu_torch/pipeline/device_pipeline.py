@@ -16,7 +16,6 @@ missing-crop convention (chalearn_dataset.py:115-116).
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
@@ -26,6 +25,7 @@ from ..data.dataset import MISSING_FILL
 from ..ops.components import MIN_PART_SIZE, largest_component_bbox, part_mask
 from ..ops.flow import DEFAULT_PARAMS, FlowParams, video_flow_uint8
 from ..ops.image import pad2x, pad_to_square_resize, shift2d
+from ..utils.profiling import stage
 
 
 class Detections(NamedTuple):
@@ -143,17 +143,16 @@ def preprocess_clip_on_device(
     (pipeline/online.OnlineVideoDataset._virtual_window). ``timer``
     (utils/profiling.StageTimer) records the 'flow' and 'crops' stages."""
     parts = list(parts) if parts is not None else crop_part_args
-    stage = timer if timer is not None else (lambda _name: nullcontext())
     t_raw, h, w = frames_bgr.shape[:3]
     dev = frames_bgr.device
     sampled = torch.arange(sampled_start, t_raw, interval, device=dev)
     canvas_hw = (2 * h, 2 * w)
 
-    with stage("flow"):
+    with stage(timer, "flow"):
         if flow_images is None:
             flow_images = video_flow_uint8(frames_bgr, flow_params)
 
-    with stage("crops"):
+    with stage(timer, "crops"):
         offsets = torch.arange(-interval + 1, 1, device=dev)
         flow_idx = torch.clamp(sampled[:, None] + offsets[None, :], min=0)  # (S, 5)
         s = sampled.shape[0]

@@ -17,7 +17,6 @@ companions the offline chain stores (chalearn_iuv_to_crop.py:25-59).
 from __future__ import annotations
 
 import random as pyrandom
-from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -30,6 +29,7 @@ from ..ops.flow import FlowParams
 from ..ops.sampling import num_uniform_clips, random_clip_indices, uniform_clip_indices
 from ..utils.cuda import resolve_device
 from ..utils.labels import SETS, get_labels
+from ..utils.profiling import span, stage
 from .device_pipeline import Detections, preprocess_clip_on_device
 
 # detectron2 Base-RCNN-FPN pixel means of caffe2 (MSRA) backbones, BGR, unit
@@ -236,13 +236,14 @@ class OnlineVideoDataset:
         return len(self.labels)
 
     def _to_device(self, rgb, depth) -> Tuple[torch.Tensor, torch.Tensor]:
-        rgb = torch.as_tensor(rgb, dtype=torch.uint8)
-        if rgb.dim() != 4 or rgb.shape[-1] != 3:
-            raise ValueError(f"rgb frames must be (T, H, W, 3), got {tuple(rgb.shape)}")
-        if depth is None or len(depth) != len(rgb):
-            depth = torch.full(rgb.shape[:3] + (1,), MISSING_FILL, dtype=torch.uint8)
-        depth = torch.as_tensor(depth, dtype=torch.uint8)
-        return rgb.to(self.device), depth.to(self.device)
+        with span("stage::upload"):
+            rgb = torch.as_tensor(rgb, dtype=torch.uint8)
+            if rgb.dim() != 4 or rgb.shape[-1] != 3:
+                raise ValueError(f"rgb frames must be (T, H, W, 3), got {tuple(rgb.shape)}")
+            if depth is None or len(depth) != len(rgb):
+                depth = torch.full(rgb.shape[:3] + (1,), MISSING_FILL, dtype=torch.uint8)
+            depth = torch.as_tensor(depth, dtype=torch.uint8)
+            return rgb.to(self.device), depth.to(self.device)
 
     def _decode(self, index: int) -> Tuple[torch.Tensor, torch.Tensor]:
         if index in self._videos:
@@ -294,8 +295,7 @@ class OnlineVideoDataset:
             h, w = frames.shape[1:3]
             padded = frames.new_zeros((len(missing), 2 * h, 2 * w, 3))
             padded[:, h // 2:h // 2 + h, w // 2:w // 2 + w] = frames[missing]
-            stage = self.timer if self.timer is not None else (lambda _n: nullcontext())
-            with stage("detect"):
+            with stage(self.timer, "detect"):
                 dets = self.detector(padded)
             for j, r in enumerate(missing):
                 cache[r] = tuple(t[j] for t in dets)

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import pickle
 import shutil
-from contextlib import nullcontext
 from glob import glob
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -44,6 +43,7 @@ from ..ops.components import largest_component_bbox, part_mask
 from ..ops.flow import DEFAULT_PARAMS, FlowParams, flow_energy_filter, video_flow_uint8
 from ..utils.cuda import resolve_device
 from ..utils.labels import SETS, parse_label_lines, write_labels
+from ..utils.profiling import stage
 from .frame_io import Cv2FrameIO
 from .iuv_contract import IUVDetection, IUVProvider
 
@@ -380,7 +380,7 @@ def run_stages(cfg, names: Sequence[str], provider: Optional[IUVProvider] = None
     }
     for name in STAGES:
         if name in names:
-            with timer(name) if timer is not None else nullcontext():
+            with stage(timer, name):
                 calls[name]()
 
 

@@ -34,7 +34,6 @@ import time
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 
 from .config import get_cfg
 from .data.fixture import generate_raw_fixture
@@ -49,7 +48,7 @@ from .ops.warp import warp_bilinear
 from .pipeline import stages
 from .pipeline.frame_io import ArrayFrameIO
 from .pipeline.iuv_contract import SyntheticIUVProvider
-from .profile_serving import GROUPS, _device_us, _group
+from .profile_serving import summary as group_summary
 from .utils.cuda import BUILD_DIR, resolve_device
 from .utils.profiling import StageTimer
 
@@ -109,23 +108,14 @@ def kernel_summary(prof, run_s: float, top: int = 12) -> dict:
     """The profiled run's device kernel ms and launches by group
     (``profile_serving``'s groups), their sum, the busy share against an
     unprofiled run of ``run_s`` seconds, and the ``top`` kernels."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
-    for e in kernels:
-        g = groups[_group(e.key)]
-        g["ms"] += _device_us(e) / 1e3
-        g["launches"] += int(e.count)
-    device_ms = sum(g["ms"] for g in groups.values())
+    out = group_summary(prof, top)
+    device_ms = out["device_kernel_ms"]
     return {
         "device_kernel_ms": round(device_ms, 3),
         "device_busy_share": (round(device_ms / 1e3 / run_s, 4) if device_ms
                               else "not measured"),
-        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
-                   for g, v in groups.items()},
-        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
-                         "launches": int(e.count)}
-                        for e in sorted(kernels, key=_device_us, reverse=True)[:top]],
+        "groups": out["groups"],
+        "top_kernels": out["top_kernels"],
     }
 
 

@@ -20,11 +20,13 @@ requests of their own; per stream with ``--ensemble``), the kernel time
 summed by
 group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
 warp_bilinear, K6 label_components, the IRLS coefficients
-irls_coefficients, convolutions and matrix products, the rest), the launch counts, the top kernels, the kernel names in
-each named group, and the device's busy share: profiled kernel time over
-the unprofiled request time. Raises without CUDA, when a kernel of the
-chosen path did not launch or a kernel of the other flow path did, and when
-a port kernel is in no group of ``PORT_KERNELS``.
+irls_coefficients, convolutions and matrix products, the rest), the launch
+counts, the top kernels, the kernel names in each named group, and the
+device's busy share: profiled kernel time over the unprofiled request time.
+A port kernel's group is the ``kernel::<wrapper>`` span (utils/profiling
+.span) that its wrapper opens around the launch; a device operation under no
+such span is grouped by its name. Raises without CUDA, and when a kernel of
+the chosen path did not launch or a kernel of the other flow path did.
 """
 
 from __future__ import annotations
@@ -32,64 +34,99 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from collections import defaultdict
 from pathlib import Path
+from typing import Dict, Iterable
 
 import torch
 from torch.autograd import DeviceType
 
 from .config import load_model_cfg
+from .detect.nms import nms
 from .engine import EnsemblePredictor, Predictor
+from .ops.component_extents import component_extents
+from .ops.flow_level import flow_level
+from .ops.irls import irls_coefficients
+from .ops.label_components import label_components
+from .ops.sor_solve import sor_solve
+from .ops.warp import warp_bilinear
 from .pipeline.online import DensePoseOnlineDetector, flow_params_from_cfg
 from .utils.cuda import resolve_device
 from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
 
-# The port's kernels are matched by their full names' prefix (they live in
-# an anonymous namespace of csrc/*.cu; a template's name starts with its
-# return type and goes on with its arguments, "void ...::name<8, 4>(...)"),
-# the libraries' by substring. A kernel of that namespace that no group names is
-# an error, not "other".
-PORT_PREFIX = "(anonymous namespace)::"
-PORT_KERNELS = (
-    ("flow_level", ("maxflow_init_kernel", "warp_phi_kernel", "coeff_kernel",
-                    "flow_level_sor_tile_kernel", "finish_kernel")),
-    ("component_extents", ("extents_cluster_kernel", "extents_device_kernel")),
-    ("nms", ("nms_sorted_kernel",)),
-    ("sor_solve", ("sor_solve_setup_kernel", "sor_solve_tile_kernel")),
-    ("warp_bilinear", ("warp_bilinear_kernel",)),
-    ("label_components", ("labels_cluster_kernel", "labels_device_kernel")),
-    ("irls_coefficients", ("irls_kernel",)),
-)
+# The port's kernels, by the wrappers that launch them: each opens the span
+# "kernel::<its name>" around its launch.
+WRAPPERS = (flow_level, component_extents, nms, sor_solve, warp_bilinear,
+            label_components, irls_coefficients)
+KERNEL_SPAN = "kernel::"
 # The groups each flow path must launch; the other path's must not launch.
 FLOW_GROUPS = {"fused": ("flow_level",),
                "per-op": ("sor_solve", "warp_bilinear", "irls_coefficients")}
 LIBRARY_KERNELS = ("conv_and_matmul", (
     "conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "winograd", "fprop",
     "cutlass"))
-GROUPS = tuple(g for g, _ in PORT_KERNELS) + (LIBRARY_KERNELS[0], "other")
+GROUPS = tuple(k.__name__ for k in WRAPPERS) + (LIBRARY_KERNELS[0], "other")
 
 
-def _group(name: str) -> str:
-    for group, kernels in PORT_KERNELS:
-        if any(name.startswith(f"{PORT_PREFIX}{k}(") or
-               name.startswith(f"void {PORT_PREFIX}{k}<") for k in kernels):
-            return group
-    # A template of PyTorch's own anonymous namespaces also reads
-    # "void (anonymous namespace)::...<...>": only plain names are checked.
-    if name.startswith(PORT_PREFIX):
-        raise RuntimeError(f"port kernel {name!r} is in no group of PORT_KERNELS")
-    low = name.lower()
+def group_of(kernel: str, scopes: Iterable[str]) -> str:
+    """The group of a device operation named ``kernel`` whose launch ran
+    inside the host ranges ``scopes``: the wrapper of the ``kernel::`` span
+    among them, else the libraries' group by the name, else 'other'."""
+    for scope in scopes:
+        if scope.startswith(KERNEL_SPAN):
+            return scope[len(KERNEL_SPAN):]
+    low = kernel.lower()
     if any(k in low for k in LIBRARY_KERNELS[1]):
         return LIBRARY_KERNELS[0]
     return "other"
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v:
-            return float(v)
-    return 0.0
+def device_time(prof) -> Dict[str, Dict]:
+    """Each device operation of a ``torch.profiler`` session under the host
+    call that launched it: {'groups': {group: {'ms', 'launches'}},
+    'kernels': {name: {'ms', 'launches', 'group'}}}. An operation and its
+    launch (a call of the CUDA runtime or driver, named "cu...") share a
+    correlation id, and the launch's enclosing host ranges are its scopes:
+    the port's extension launches under no aten op, only under its
+    wrapper's span. A ``record_function`` range also shows on the device
+    timeline, as an annotation named like its host event: those are not
+    operations."""
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    names = {e.name for e in host}
+    launches = {e.id: e for e in host if e.name.startswith("cu") and "::" not in e.name}
+    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
+    kernels: Dict[str, Dict] = defaultdict(lambda: {"ms": 0.0, "launches": 0})
+    for d in events:
+        if d.device_type != DeviceType.CUDA or d.name in names:
+            continue
+        scopes, scope = [], launches.get(d.id)
+        while scope is not None:
+            scopes.append(scope.name)
+            scope = scope.cpu_parent
+        group = group_of(d.name, scopes)
+        for row in (groups[group], kernels[d.name]):
+            row["ms"] += (d.time_range.end - d.time_range.start) / 1e3
+            row["launches"] += 1
+        kernels[d.name]["group"] = group
+    return {"groups": groups, "kernels": dict(kernels)}
+
+
+def summary(prof, top: int = 12) -> Dict:
+    """``device_time`` rounded for printing: the groups, the ``top``
+    kernels, the kernel names in each named group, the device ms in all."""
+    t = device_time(prof)
+    ranked = sorted(t["kernels"].items(), key=lambda kv: -kv[1]["ms"])
+    return {
+        "device_kernel_ms": sum(g["ms"] for g in t["groups"].values()),
+        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
+                   for g, v in t["groups"].items()},
+        "top_kernels": [{"name": n[:90], "ms": round(v["ms"], 3), "launches": v["launches"]}
+                        for n, v in ranked[:top]],
+        "named_group_kernels": {
+            g: sorted({n[:90] for n, v in ranked if v["group"] == g}) for g in GROUPS[:-1]},
+    }
 
 
 def main(argv=None) -> int:
@@ -148,15 +185,8 @@ def main(argv=None) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         pred.predict_frames(rgb, depth)
         torch.cuda.synchronize()
-    # Device-side events only (kernels, copies): the CPU-side op entries
-    # carry their kernels' time too and would count it twice.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
-    for e in kernels:
-        g = groups[_group(e.key)]
-        g["ms"] += _device_us(e) / 1e3
-        g["launches"] += int(e.count)
+    kernels = summary(prof)
+    groups = kernels["groups"]
     required = FLOW_GROUPS[args.flow] + ("component_extents",)
     if detector is not None:
         required += ("nms",)
@@ -167,8 +197,7 @@ def main(argv=None) -> int:
     for group in FLOW_GROUPS[other]:
         if groups[group]["launches"]:
             raise RuntimeError(f"{group} launched on the {args.flow} flow path")
-    device_ms = sum(g["ms"] for g in groups.values())
-    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    device_ms = kernels.pop("device_kernel_ms")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "detector": args.detector,
@@ -180,13 +209,7 @@ def main(argv=None) -> int:
         "device_kernel_ms": round(device_ms, 3),
         "device_busy_share": (round(device_ms / 1e3 / wall, 4) if device_ms
                               else "not measured"),
-        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
-                   for g, v in groups.items()},
-        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
-                         "launches": int(e.count)} for e in top],
-        "named_group_kernels": {
-            g: sorted({e.key[:90] for e in kernels if _group(e.key) == g})
-            for g in GROUPS[:-1]},
+        **kernels,
     }, indent=1))
     return 0
 

@@ -16,11 +16,12 @@ making of one batch of clips before it). Prints:
   * ms per step and train clips/s, the peak device memory;
   * the device time of the profiled step by kernel group: the libraries'
     convolutions and matrix products (cuDNN, cuBLAS, CUTLASS), the port's
-    kernels (K1-K6 by name, as profile_serving groups them), and the rest
-    of PyTorch's kernels; and by phase of the step (the ``record_function``
-    ranges of ``Trainer.train_step`` around the launching host op, and
-    autograd's engine for the backward): normalize + crop glue, forward
-    with the loss, backward, Adam;
+    kernels (K1-K6 by the wrapper span that launched them, as
+    profile_serving groups them), and the rest of PyTorch's kernels; and by
+    phase of the step (the ``record_function`` ranges of
+    ``Trainer.train_step`` around the launching host op, and autograd's
+    engine for the backward): normalize + crop glue, forward with the loss,
+    backward, Adam;
   * BatchNorm's share, by ablation: the step time with every BatchNorm
     made the identity, against the full step (same convolutions);
   * the busy share: the profiled device time over the unprofiled step time;
@@ -49,7 +50,7 @@ from .data.dataset import train_batches
 from .engine.trainer import Trainer
 from .models.layers import BatchNorm
 from .pipeline.online import OnlineVideoDataset
-from .profile_serving import GROUPS, _device_us, _group
+from .profile_serving import summary
 from .utils.cuda import resolve_device
 from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
@@ -125,15 +126,8 @@ def profile(fn) -> Dict:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    averaged = prof.key_averages()
-    host = {e.key for e in averaged if e.device_type == DeviceType.CPU}
-    kernels = [e for e in averaged if e.device_type == DeviceType.CUDA
-               and _device_us(e) > 0 and e.key not in host]
-    groups = {g: {"ms": 0.0, "launches": 0} for g in GROUPS}
-    for e in kernels:
-        g = groups[_group(e.key)]
-        g["ms"] += _device_us(e) / 1e3
-        g["launches"] += int(e.count)
+    kernels = summary(prof)
+    host = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
     phases = {p: 0.0 for p in PHASES + ("other",)}
     for e in prof.events():
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -149,13 +143,10 @@ def profile(fn) -> Dict:
             scope = scope.cpu_parent
         phases[phase] += sum(k.duration for k in e.kernels if k.name not in host) / 1e3
     return {
-        "device_ms": sum(g["ms"] for g in groups.values()),
-        "groups": {g: {"ms": round(v["ms"], 3), "launches": v["launches"]}
-                   for g, v in groups.items()},
+        "device_ms": kernels["device_kernel_ms"],
+        "groups": kernels["groups"],
         "phases_device_ms": {p: round(v, 3) for p, v in phases.items()},
-        "top_kernels": [{"name": e.key[:90], "ms": round(_device_us(e) / 1e3, 3),
-                         "launches": int(e.count)}
-                        for e in sorted(kernels, key=_device_us, reverse=True)[:12]],
+        "top_kernels": kernels["top_kernels"],
     }
 
 

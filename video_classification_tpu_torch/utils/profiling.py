@@ -1,16 +1,64 @@
-"""Profiling: wall time per named stage synchronised with the device
-(``StageTimer``), step statistics (``StepTimer``) and a device trace
-(``trace``)."""
+"""Profiling: named ranges on the profiler's timeline (``span``, ``stage``)
+and counts of the work done (``count``), wall time per named stage
+synchronised with the device (``StageTimer``), step statistics
+(``StepTimer``) and a device trace (``trace``).
+
+``span`` and ``count`` act only while a ``torch.profiler`` session records:
+the session is their one switch. A span is a ``record_function`` range, so
+it lands in the same timeline as the device's kernels and copies, on one
+clock; with no session it is one shared no-op context, and costs a flag
+read. The names in use: ``serve::request`` (args: the predictor's request
+ordinal) and ``serve::stream`` (args: the stream's model name) in
+``engine/predictor``; ``stage::<name>`` for the stages (``stage``, and
+``stage::upload`` and ``stage::fuse``); ``kernel::<wrapper>`` around each
+hand-written kernel's launch (or, on the CPU, its plain version);
+``data::wait`` in ``data/pipeline.prefetch_to_device``; ``train::<phase>``
+in ``engine/trainer``. The one count: ``flow.pairs``, the frame pairs
+``ops/flow.coarse2fine_flow`` solves."""
 
 from __future__ import annotations
 
 import time
-from collections import defaultdict
-from contextlib import contextmanager
+from collections import Counter, defaultdict
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# What ``count`` added while a profiler recorded, by name.
+COUNTS: Counter = Counter()
+_OFF = nullcontext()
+
+
+def span(name: str, args: Optional[str] = None):
+    """``with span("stage::flow"): ...``: a ``record_function`` range while a
+    ``torch.profiler`` session records, else a shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name, args)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``COUNTS[name]`` while a profiler records."""
+    if _autograd_profiler._is_profiler_enabled:
+        COUNTS[name] += int(n)
+
+
+def stage(timer, name: str):
+    """``with stage(timer, "flow"): ...``: the span ``stage::<name>`` and,
+    when ``timer`` (a ``StageTimer``) is given, the stage's synchronised wall
+    time under ``name``."""
+    if timer is None:
+        return span("stage::" + name)
+    return _timed_stage(timer, name)
+
+
+@contextmanager
+def _timed_stage(timer, name: str):
+    with timer(name), span("stage::" + name):
+        yield
 
 
 class StageTimer:
