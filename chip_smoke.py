@@ -7,15 +7,19 @@ one NVIDIA GPU.
 Phases, each fatal on failure:
   1. environment: the card's name and power limit;
   2. build the CUDA kernels of utils/cuda.SOURCES from csrc/, with the
-     headers of utils/cuda.HEADERS (the SOR tiles, sor_tiles.cuh, and the
-     cluster strips, cluster_strips.cuh)
+     headers of utils/cuda.HEADERS (the SOR tiles, sor_tiles.cuh, the
+     cluster strips, cluster_strips.cuh, and K1's resident SOR,
+     sor_resident.cuh)
      (torch.utils.cpp_extension.load, sm_90a, into .torch_ext/);
   3. K1 flow_level bit-equal to its plain PyTorch version (u, v and mx) at
      every pyramid level shape of a 240x320 frame: 4 coherent-motion pairs
      from a nonzero initial flow, then the serving batch (101 pairs, timed)
      from zero flow; and on random pairs at the SOR tiles' edge shapes and
      sweep counts (EDGE_SHAPES x edge_sweeps()); each level's half-sweeps per
-     launch and device time per half-sweep;
+     launch and device time per half-sweep; at every level of the serving
+     batch the SOR tiles' schedule (flow_level_tiled) bit-equal too, timed
+     in turns with the resident SOR, each level's schedule, resident plan
+     and active clusters, and the resident kernel's registers and spills;
   4. K2 component_extents against its plain version, exactly, at 56x56 and
      112x112 on synthetic-detector charts, random masks, a serpentine longer
      than H + W; on the strip-boundary shapes (1xW, Hx1 up to 255, 13x17,
@@ -267,7 +271,9 @@ and last {"ok": true,
 from __future__ import annotations
 
 import json
+import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -446,20 +452,55 @@ def sor_schedule_row(run, h: int, w: int, n_sor: int, solves: int):
             "ms_per_half_sweep": round(diff / (solves * 2 * (n_sor - short)), 5)}
 
 
+def resident_ptxas() -> dict:
+    """ptxas's registers, spills and shared memory of K1's resident SOR
+    kernel: csrc/flow_level.cu compiled alone with the extension's CUDA
+    flags and -Xptxas -v (plain C launchers, so seconds)."""
+    from video_classification_tpu_torch.utils import cuda
+
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [nvcc, *cuda.cuda_flags(), "-std=c++17", "-Xptxas", "-v", "-c",
+             str(cuda.CSRC / "flow_level.cu"), "-o", os.path.join(tmp, "k1.o")],
+            capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v flow_level.cu failed:\n{out.stderr[-4000:]}")
+    lines = out.stderr.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if "Compiling entry function" in line and "sor_resident_kernel" in line)
+    info = " ".join(line.split("ptxas info    :")[-1].strip() for line in lines[start + 1:start + 4])
+    regs = re.search(r"Used (\d+) registers", info)
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spills.group(1)) if spills else None,
+            "spill_loads": int(spills.group(2)) if spills else None, "ptxas": info}
+
+
 def check_flow_level(dev, pyramids):
     """K1 bit-equal to its plain version (u, v, mx) at every level (4 pairs
     from a nonzero flow, then the 101-pair serving batch from zero flow,
-    timed) and at the SOR tiles' edge shapes and sweep counts."""
+    timed) and at the SOR tiles' edge shapes and sweep counts. At every
+    level of the serving batch the SOR tiles' schedule (the binding's
+    flow_level_tiled) must give the same (u, v, mx), and the two are timed
+    in turns (tiled, resident, resident, tiled); each level's schedule, the
+    resident plan and the clusters the card runs at once, and the resident
+    kernel's registers and spills (ptxas)."""
     import torch
 
     from video_classification_tpu_torch.ops.flow import FlowParams
     from video_classification_tpu_torch.ops.flow_level import (
-        flow_level, flow_level_reference)
+        flow_level, flow_level_reference, resident_plan, sor_schedule)
+    from video_classification_tpu_torch.ops.sor_solve import SCHEDULE
+    from video_classification_tpu_torch.utils.cuda import build
 
+    ext = build()
     p = FlowParams()
     tail = (p.alpha, p.omega, p.eps, p.warp_radius, p.fuse_outer_tol)
     args = (p.n_sor, *tail)
     shapes, pyr1, pyr2, g = pyramids
+    ptxas = resident_ptxas()
+    log(f"  K1 resident SOR kernel (ptxas): {json.dumps(ptxas)}")
 
     worst = [0.0]
 
@@ -468,6 +509,9 @@ def check_flow_level(dev, pyramids):
             f"K1 {what}", flow_level(*call),
             flow_level_reference(*call) if plain is None else plain))
         log(f"  K1 {what}: bit-equal (u, v, mx)")
+
+    def tiled(*call):
+        return ext.flow_level_tiled(*call, SCHEDULE)
 
     for lvl, (h, w) in enumerate(shapes):
         u0, v0 = (smooth_noise(g, 4, h, w, 1.5).to(dev) for _ in range(2))
@@ -484,10 +528,14 @@ def check_flow_level(dev, pyramids):
     for lvl, (h, w) in enumerate(shapes):
         a1, a2 = serving_batch(pyr1, lvl), serving_batch(pyr2, lvl)
         z = torch.zeros((b, h, w), device=dev)
-        plain, plain_ms = cuda_call_ms(
-            lambda: flow_level_reference(a1, a2, z, z, p.n_outer, *args))
-        exact(f"{h}x{w} x{b}, zero start", a1, a2, z, z, p.n_outer, *args, plain=plain)
-        ms = cuda_ms(lambda: flow_level(a1, a2, z, z, p.n_outer, *args))
+        call = (a1, a2, z, z, p.n_outer, *args)
+        plain, plain_ms = cuda_call_ms(lambda: flow_level_reference(*call))
+        exact(f"{h}x{w} x{b}, zero start", *call, plain=plain)
+        require_equal(f"K1 {h}x{w} x{b}, tiled schedule", tiled(*call), plain)
+        log(f"  K1 {h}x{w} x{b}: the SOR tiles' schedule bit-equal (u, v, mx)")
+        turns = [cuda_ms(lambda: tiled(*call)), cuda_ms(lambda: flow_level(*call)),
+                 cuda_ms(lambda: flow_level(*call)), cuda_ms(lambda: tiled(*call))]
+        ms = (turns[1] + turns[2]) / 2
         outers = int(executed_outers(
             lambda k: flow_level(a1, a2, z, z, k, *args), p.n_outer).sum())
         ops = outers * h * w * flow_ops_per_pixel_outer(3, p.n_sor)
@@ -497,11 +545,19 @@ def check_flow_level(dev, pyramids):
             lambda n: flow_level(a1, a2, z, z, p.n_outer, n, *tail[:-1], -1.0),
             h, w, p.n_sor, p.n_outer)
         row = {"level": f"{h}x{w}", "pairs": b, "ms": round(ms, 4),
+               "turns_tiled_resident_resident_tiled_ms": [round(t, 4) for t in turns],
+               "schedule": sor_schedule(h, w), "resident_plan": list(resident_plan(h, w)),
+               "compiled_plan": list(ext.flow_level_resident_plan(h, w)),
+               "active_clusters": ext.flow_level_active_clusters(h, w),
                "outers": outers, "bound_ms": round(bound_ms, 4),
                "bound_by": bound_by, "plain_ms": round(plain_ms, 4), **sched}
+        if row["resident_plan"] != row["compiled_plan"]:
+            raise AssertionError(f"K1 {h}x{w}: resident plan {row['resident_plan']} "
+                                 f"differs from the compiled {row['compiled_plan']}")
         levels.append(row)
         log(f"  K1 time {json.dumps(row)}")
-    return {"max_abs_err": worst[0], "levels": levels, **levels[0]}
+    return {"max_abs_err": worst[0], "levels": levels, "resident_ptxas": ptxas,
+            **levels[0]}
 
 
 def rounds_per_mask(states, cap: int, groups):
@@ -1819,7 +1875,8 @@ ext, d = build(), torch.device("cuda")
 z = torch.zeros((2, 8, 8), device=d)
 im = torch.zeros((2, 8, 8, 3), device=d)
 calls = {
-    "flow_level": lambda: ext.flow_level(im, im, z, z, 1, 1, 0.012, 1.8, 1e-6, 8, 0.0, [0, 0, 0]),
+    "flow_level": lambda: ext.flow_level(im, im, z, z, 1, 1, 0.012, 1.8, 1e-6, 8, 0.0, [0, 0, 0],
+                                         [1, 8]),
     "sor_solve": lambda: ext.sor_solve(*([z] * 13), 1, 0.012, 1.8, [0, 0, 0]),
     "component_extents": lambda: ext.component_extents(
         torch.zeros((1, 65535, 1), dtype=torch.bool, device=d), 8),

@@ -24,8 +24,11 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
                               float* warped, float* red, int B, int H, int W,
                               int C, int n_outer, int n_sor, float alpha,
                               float omega, float one_m_omega, float eps,
-                              int r_cap, float outer_tol, cudaStream_t st);
+                              int r_cap, float outer_tol, bool tiled,
+                              cudaStream_t st);
 int flow_level_num_fields();
+void flow_level_resident_plan(int H, int W, int out[2]);
+int flow_level_active_clusters(int H, int W);
 void sor_tiles_schedule(int out[3]);
 int component_extents_route(int H, int W);
 int64_t component_extents_scratch_bytes(int B, int H, int W);
@@ -95,13 +98,25 @@ torch::Tensor cuda_f32(const torch::Tensor& t, const char* name) {
   return t.contiguous();
 }
 
-// (u, v, mx): see ops/flow_level.py::flow_level.
-std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
+// The resident SOR's plan the caller expects for H x W
+// (ops/flow_level.py::resident_plan) must be the one compiled into
+// csrc/sor_resident.cuh.
+void check_resident_plan(const std::vector<int64_t>& plan, int64_t H,
+                         int64_t W) {
+  int compiled[2];
+  flow_level_resident_plan((int)H, (int)W, compiled);
+  TORCH_CHECK(plan.size() == 2 && plan[0] == compiled[0] &&
+                  plan[1] == compiled[1],
+              "flow_level: resident plan ", c10::IntArrayRef(plan), " for ",
+              H, "x", W, " differs from the compiled (", compiled[0], ", ",
+              compiled[1], ")");
+}
+
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> run_flow_level(
     const torch::Tensor& im1_in, const torch::Tensor& im2_in,
     const torch::Tensor& u, const torch::Tensor& v, int64_t n_outer,
     int64_t n_sor, double alpha, double omega, double eps, int64_t r_cap,
-    double outer_tol, const std::vector<int64_t>& schedule) {
-  check_schedule(schedule, "flow_level");
+    double outer_tol, bool tiled) {
   const auto im1 = cuda_f32(im1_in, "im1"), im2 = cuda_f32(im2_in, "im2");
   TORCH_CHECK(im1.dim() == 4 && im2.sizes() == im1.sizes(),
               "im1, im2 must be (B, H, W, C) alike");
@@ -127,9 +142,41 @@ std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
           fields.data_ptr<float>(), warped.data_ptr<float>(),
           red.data_ptr<float>(), B, H, W, C, n_outer, n_sor, (float)alpha,
           (float)omega, (float)(1.0 - omega), (float)eps, r_cap,
-          (float)outer_tol, at::cuda::getCurrentCUDAStream()),
+          (float)outer_tol, tiled, at::cuda::getCurrentCUDAStream()),
       "flow_level");
   return {u_out, v_out, mx};
+}
+
+// (u, v, mx): see ops/flow_level.py::flow_level.
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level(
+    const torch::Tensor& im1, const torch::Tensor& im2, const torch::Tensor& u,
+    const torch::Tensor& v, int64_t n_outer, int64_t n_sor, double alpha,
+    double omega, double eps, int64_t r_cap, double outer_tol,
+    const std::vector<int64_t>& schedule,
+    const std::vector<int64_t>& resident_plan) {
+  check_schedule(schedule, "flow_level");
+  TORCH_CHECK(im1.dim() == 4, "im1, im2 must be (B, H, W, C) alike");
+  check_resident_plan(resident_plan, im1.size(1), im1.size(2));
+  return run_flow_level(im1, im2, u, v, n_outer, n_sor, alpha, omega, eps,
+                        r_cap, outer_tol, false);
+}
+
+// The same level with the SOR tiles' schedule at every shape: the resident
+// SOR's yardstick on the card (chip_smoke.py); no path of the port calls it.
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor> flow_level_tiled(
+    const torch::Tensor& im1, const torch::Tensor& im2, const torch::Tensor& u,
+    const torch::Tensor& v, int64_t n_outer, int64_t n_sor, double alpha,
+    double omega, double eps, int64_t r_cap, double outer_tol,
+    const std::vector<int64_t>& schedule) {
+  check_schedule(schedule, "flow_level_tiled");
+  return run_flow_level(im1, im2, u, v, n_outer, n_sor, alpha, omega, eps,
+                        r_cap, outer_tol, true);
+}
+
+std::vector<int64_t> flow_level_resident_plan_of(int64_t H, int64_t W) {
+  int plan[2];
+  flow_level_resident_plan((int)H, (int)W, plan);
+  return {plan[0], plan[1]};
 }
 
 // (min_row, max_row, min_col, max_col): see
@@ -334,6 +381,9 @@ std::string label_components_route_of(int64_t H, int64_t W) {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flow_level", &flow_level);
+  m.def("flow_level_tiled", &flow_level_tiled);
+  m.def("flow_level_resident_plan", &flow_level_resident_plan_of);
+  m.def("flow_level_active_clusters", &flow_level_active_clusters);
   m.def("component_extents", &component_extents);
   m.def("nms", &nms);
   m.def("sor_solve", &sor_solve);

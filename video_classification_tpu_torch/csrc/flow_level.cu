@@ -18,20 +18,30 @@
 // and sweeps; one 240x320 f32 field (300 KB) already exceeds the 227 KB of
 // shared memory of one H100 block, so here the level is a host-side sequence
 // of kernels over all B pairs: per outer one warp+phi kernel, one
-// coefficient kernel, the SOR half-sweeps in on-chip tiles (sor_tiles.cuh,
-// shared with sor_solve.cu: 12 half-sweeps per launch on 64x64 windows, the
-// read-only fields in registers, (du, dv) in shared memory and ping-pong
-// buffers in device memory; all half-sweeps in one launch for a frame of at
-// most 64x64), and one finish kernel that adds the increments and reduces
-// max|du,dv| and max|flow| per pair with atomics. Converged pairs are
-// switched off by per-pair flags that every kernel reads from device memory,
-// so a level never syncs the host.
+// coefficient kernel, one launch of all 2 n_sor SOR half-sweeps, and one
+// finish kernel that adds the increments and reduces max|du,dv| and
+// max|flow| per pair with atomics. The SOR holds each frame on the chip for
+// the whole outer (sor_resident.cuh): one thread-block cluster a pair, a
+// strip of rows a CTA, the strip's read-only fields and (du, dv) in shared
+// memory, each strip's edge cells sent through distributed shared memory
+// as soon as a half-sweep has computed them; 16 CTAs at most
+// (sor_resident::plan), which hold every level of the serving, offline and
+// v2 pyramids (up to 240x320; at 320 columns, up to 256 rows). A frame of
+// at most 64x64 runs as one block, all half-sweeps in one launch
+// (sor_tiles.cuh's whole frame, shared with sor_solve.cu); a frame no
+// cluster holds takes the SOR tiles' schedule (12 half-sweeps per launch
+// on 64x64 windows, each launch staging its windows' fields again).
+// Converged pairs are switched off by per-pair flags that every kernel
+// reads from device memory, so a level never syncs the host.
 //
 // Bound. The kernel's bound is its ~1e3 f32 operations per pixel per outer
-// (inputs and outputs are a few fields). What it moves is the SOR state:
-// each tiled launch loads 13 fields over 2.56x the frame once per 12
-// half-sweeps at 240x320 (before: 15 fields per half-sweep), and the
-// half-sweeps read 12 shared-memory words per updated pixel.
+// (inputs and outputs are a few fields). What the SOR moves: each outer
+// loads 9 fields and writes 2 once per cell (the tiles loaded 13 fields
+// over 2.29x the frame once per 12 half-sweeps at 240x320); each updated
+// cell reads 21 shared-memory words (its 11 coefficients, its own and 8
+// neighbouring increments) and writes 2, and every half-sweep waits for the
+// exchange of the one before: at 101 pairs of 240x320, 7 clusters of 16
+// CTAs run at once, in 15 waves per outer.
 //
 // Built with -fmad=false, so nvcc contracts nothing on its own: the fused
 // multiply-adds are the __fmaf_rn of the plain PyTorch twin's fma_f32
@@ -42,6 +52,7 @@
 
 #include <cuda_runtime.h>
 
+#include "sor_resident.cuh"
 #include "sor_tiles.cuh"
 
 namespace {
@@ -248,6 +259,14 @@ flow_level_sor_tile_kernel(Level L, int k, sor_tiles::Fields F, float* du,
                        L.one_m_omega, ActivePairs{L, k});
 }
 
+// All n SOR half-sweeps of the pairs that run outer k, each frame resident
+// in one cluster (sor_resident.cuh), from zero into (du, dv).
+__global__ void __launch_bounds__(sor_resident::kThreads, 1)
+flow_level_sor_resident_kernel(Level L, int k, sor_resident::Args A) {
+  extern __shared__ float smem[];
+  sor_resident::run(smem, A, ActivePairs{L, k});
+}
+
 // u += du, v += dv; per-pair max|du, dv| (the early-exit test) and the next
 // outer's max|flow|; mx takes this outer's pre-clamp max|flow|.
 __global__ void __launch_bounds__(kThreads) finish_kernel(Level L, int k) {
@@ -273,17 +292,49 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(Level L, int k) {
   }
 }
 
+// The resident SOR's launch configuration for B pairs of H x W; attr is
+// the cluster dimension it points to.
+cudaLaunchConfig_t resident_config(const sor_resident::Plan& RP, int B, int W,
+                                   cudaLaunchAttribute& attr, cudaStream_t st) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = RP.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * RP.cluster);
+  cfg.blockDim = dim3(sor_resident::kThreads);
+  cfg.dynamicSmemBytes = sor_resident::smem_bytes(RP.rows, W);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t set_resident_attributes(const sor_resident::Plan& RP, int W) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flow_level_sor_resident_kernel,
+      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flow_level_sor_resident_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sor_resident::smem_bytes(RP.rows, W));
+}
+
 }  // namespace
 
 // Launches the whole level on `stream`; the binding (bindings.cpp) allocates
 // the scratch: fields (flow_level_num_fields() x B x H x W), warped (like
-// im1) and red ((2 n_outer + 1) x B, zeroed), and mx (B,), zeroed.
+// im1) and red ((2 n_outer + 1) x B, zeroed), and mx (B,), zeroed. The SOR
+// holds each frame on the chip where sor_resident::plan finds a cluster for
+// it and the frame is larger than one SOR tile, unless `tiled` asks for the
+// SOR tiles' schedule (the comparison of the two on the card).
 cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
                               float* v, float* mx, float* fields,
                               float* warped, float* red, int B, int H, int W,
                               int C, int n_outer, int n_sor, float alpha,
                               float omega, float one_m_omega, float eps,
-                              int r_cap, float outer_tol, cudaStream_t st) {
+                              int r_cap, float outer_tol, bool tiled,
+                              cudaStream_t st) {
   if (B <= 0 || H < 2 || W < 2 || C <= 0 || n_sor < 0)
     return cudaErrorInvalidValue;
   const Level L{im1, im2, u, v, mx, fields, warped, red, B, H, W, C, n_outer,
@@ -292,32 +343,63 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
   const dim3 px_grid((H * W + kThreads - 1) / kThreads, B);
   const int n_half = 2 * n_sor;
   const sor_tiles::Plan P = sor_tiles::plan(H, W, n_half);
+  const sor_resident::Plan RP = sor_resident::plan(H, W);
+  const bool resident =
+      !tiled && !sor_tiles::whole_frame(H, W) && RP.cluster > 0;
   const int tile_grid = sor_tiles::grid_blocks(P, B);
-  // The SOR starts from zeros in the pair that is not its first destination
-  // and ends in (DU, DV), where finish_kernel reads.
-  const int zero = sor_tiles::num_launches(P, n_half) % 2 ? DU2 : DU;
+  // The tiles start from zeros in the pair that is not their first
+  // destination and end in (DU, DV), where finish_kernel reads; the
+  // resident SOR starts from zero on the chip and writes (DU, DV), so the
+  // coefficient kernel's zeros go to (DU2, DV2), unread.
+  const int zero =
+      resident || sor_tiles::num_launches(P, n_half) % 2 ? DU2 : DU;
   sor_tiles::Fields F;
   for (int f = A12; f <= NVC; ++f) F.f[f] = fields + f * n;
-  cudaError_t err = cudaFuncSetAttribute(
-      flow_level_sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sor_tiles::kSmemBytes);
+  sor_resident::Args A;
+  const Field on_chip[sor_resident::kCoeffs] = {A12, B1,  B2,  WL, INVU,
+                                                INVV, NUC, NVC, WU};
+  for (int f = 0; f < sor_resident::kCoeffs; ++f)
+    A.f[f] = fields + on_chip[f] * n;
+  A.du = fields + DU * n;
+  A.dv = fields + DV * n;
+  A.H = H;
+  A.W = W;
+  A.rows = RP.rows;
+  A.n = n_half;
+  A.alpha = alpha;
+  A.omega = omega;
+  A.one_m_omega = one_m_omega;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = resident_config(RP, B, W, attr, st);
+  cudaError_t err =
+      resident ? set_resident_attributes(RP, W)
+               : cudaFuncSetAttribute(
+                     flow_level_sor_tile_kernel,
+                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     sor_tiles::kSmemBytes);
   if (err != cudaSuccess) return err;
   maxflow_init_kernel<<<px_grid, kThreads, 0, st>>>(L);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   for (int k = 0; k < n_outer; ++k) {
     warp_phi_kernel<<<px_grid, kThreads, 0, st>>>(L, k);
     coeff_kernel<<<px_grid, kThreads, 0, st>>>(L, k, zero);
-    err = sor_tiles::run_schedule(
-        P, n_half, fields + zero * n, fields + (zero + 1) * n, fields + DU * n,
-        fields + DV * n, fields + DU2 * n, fields + DV2 * n,
-        [&](const float* sdu, const float* sdv, float* ddu, float* ddv,
-            int count) {
-          F.f[sor_tiles::DU] = sdu;
-          F.f[sor_tiles::DV] = sdv;
-          flow_level_sor_tile_kernel<<<tile_grid, sor_tiles::kThreads,
-                                       sor_tiles::kSmemBytes, st>>>(
-              L, k, F, ddu, ddv, P, count);
-        });
+    if (resident) {
+      err = cudaLaunchKernelEx(&cfg, flow_level_sor_resident_kernel, L, k, A);
+      if (err == cudaSuccess) err = cudaGetLastError();
+    } else {
+      err = sor_tiles::run_schedule(
+          P, n_half, fields + zero * n, fields + (zero + 1) * n,
+          fields + DU * n, fields + DV * n, fields + DU2 * n,
+          fields + DV2 * n,
+          [&](const float* sdu, const float* sdv, float* ddu, float* ddv,
+              int count) {
+            F.f[sor_tiles::DU] = sdu;
+            F.f[sor_tiles::DV] = sdv;
+            flow_level_sor_tile_kernel<<<tile_grid, sor_tiles::kThreads,
+                                         sor_tiles::kSmemBytes, st>>>(
+                L, k, F, ddu, ddv, P, count);
+          });
+    }
     if (err != cudaSuccess) return err;
     finish_kernel<<<px_grid, kThreads, 0, st>>>(L, k);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -326,3 +408,27 @@ cudaError_t flow_level_launch(const float* im1, const float* im2, float* u,
 }
 
 int flow_level_num_fields() { return kNumFields; }
+
+// The resident SOR's plan for H x W, {CTAs per frame, rows per CTA}; {0, 0}
+// where no cluster holds the frame.
+void flow_level_resident_plan(int H, int W, int out[2]) {
+  const sor_resident::Plan RP = sor_resident::plan(H, W);
+  out[0] = RP.cluster;
+  out[1] = RP.rows;
+}
+
+// Clusters of the resident SOR at H x W that the card runs at once
+// (cudaOccupancyMaxActiveClusters); 0 where no cluster holds the frame, -1
+// on an error.
+int flow_level_active_clusters(int H, int W) {
+  const sor_resident::Plan RP = sor_resident::plan(H, W);
+  if (RP.cluster == 0) return 0;
+  if (set_resident_attributes(RP, W) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = resident_config(RP, RP.cluster, W, attr, 0);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, flow_level_sor_resident_kernel,
+                                     &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
+}

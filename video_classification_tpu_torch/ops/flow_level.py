@@ -5,7 +5,10 @@
 n_outer x (clamped bilinear warp + IRLS data terms + Charbonnier edge weights
 + n_sor red-black SOR sweeps) for a batch of frame pairs, with the per-pair
 early exit once an outer's max|du, dv| <= ``outer_tol``. See
-``csrc/flow_level.cu`` for the design on Hopper.
+``csrc/flow_level.cu`` for the design on Hopper. Its SOR holds each frame on
+the chip for a whole outer, one thread-block cluster a pair
+(``csrc/sor_resident.cuh``); ``resident_plan`` mirrors that header's plan,
+``sor_schedule`` says which schedule a level's SOR takes.
 
 ``flow_level_reference`` performs the kernel's float32 operations in the
 kernel's order with plain tensor ops, with the fused multiply-adds that
@@ -24,12 +27,53 @@ from typing import Tuple
 import torch
 
 from ..utils import cuda
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .fma import fma_f32, rsqrt_f32
 from .sor_solve import (SCHEDULE, _shift_zero, check_tileable,
-                        sor_solve_reference)
+                        sor_solve_reference, whole_frame)
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# The resident SOR's plan, compiled into csrc/sor_resident.cuh; the wrapper
+# passes a level's plan to the binding, which refuses one that differs.
+RESIDENT_MAX_CLUSTER = 16   # CTAs per frame, at most
+RESIDENT_MAX_SMEM = 232448  # shared memory of one H100 block
+RESIDENT_STATIC_SMEM = 16   # the CTA's two mbarriers
+RESIDENT_COEFFS = 9         # fields held on the chip
+RESIDENT_THREADS = 512      # threads of a CTA
+RESIDENT_CELLS = 6          # cells of one colour a thread updates, at most
+
+
+def resident_smem_bytes(rows: int, w: int) -> int:
+    """Shared memory of a CTA holding ``rows`` rows of a w-wide frame: the
+    9 fields, wu's row below, (du, dv) with a halo row above and below, each
+    split by colour into rows of ceil(w / 2) words."""
+    return 2 * ((w + 1) // 2) * (RESIDENT_COEFFS * rows + 1 + 2 * (rows + 2)) * 4
+
+
+def resident_plan(h: int, w: int) -> Tuple[int, int]:
+    """(CTAs per frame, rows per CTA) of the resident SOR at h x w: the
+    fewest CTAs, at most ``RESIDENT_MAX_CLUSTER``, whose strips fit one
+    CTA's shared memory and its threads' cells; where that is more than 8,
+    ``RESIDENT_MAX_CLUSTER`` CTAs' strips (such a cluster holds a GPC
+    alone); (0, 0) where none fit."""
+    for c in range(1, RESIDENT_MAX_CLUSTER + 1):
+        rows = -(-h // c)
+        if (resident_smem_bytes(rows, w) + RESIDENT_STATIC_SMEM <= RESIDENT_MAX_SMEM
+                and rows * ((w + 1) // 2) <= RESIDENT_CELLS * RESIDENT_THREADS):
+            if c > RESIDENT_MAX_CLUSTER // 2:
+                rows = -(-h // RESIDENT_MAX_CLUSTER)
+            return -(-h // rows), rows
+    return 0, 0
+
+
+def sor_schedule(h: int, w: int) -> str:
+    """The schedule of K1's SOR at h x w: "whole" (one block, all
+    half-sweeps in one launch; at most 64x64), "resident" (one cluster a
+    frame, all half-sweeps in one launch) or "tiled" (the SOR tiles)."""
+    if whole_frame(h, w):
+        return "whole"
+    return "resident" if resident_plan(h, w)[0] else "tiled"
 
 
 def _check_inputs(im1, im2, u, v) -> None:
@@ -57,16 +101,22 @@ def flow_level(im1: torch.Tensor, im2: torch.Tensor, u: torch.Tensor,
 
     Returns (u, v, mx) with mx (B,) the per-pair max over executed outers of
     the pre-clamp max|flow|. CPU tensors run ``flow_level_reference``; CUDA
-    tensors launch the kernel (and raise if it cannot build or launch)."""
+    tensors launch the kernel (and raise if it cannot build or launch), and
+    count the level as "flow.sor_resident_levels" (a whole or resident
+    frame) or "flow.sor_tiled_levels" while a profiler records."""
     _check_inputs(im1, im2, u, v)
     with span("kernel::flow_level"):
         if im1.device.type == "cpu":
             return flow_level_reference(im1, im2, u, v, n_outer, n_sor, alpha,
                                         omega, eps, r_cap, outer_tol)
         check_tileable(*u.shape)
+        h, w = u.shape[1:]
+        tiled = sor_schedule(h, w) == "tiled"
+        count("flow.sor_tiled_levels" if tiled else "flow.sor_resident_levels", 1)
         out = cuda.build().flow_level(im1, im2, u, v, int(n_outer), int(n_sor),
                                       float(alpha), float(omega), float(eps),
-                                      int(r_cap), float(outer_tol), SCHEDULE)
+                                      int(r_cap), float(outer_tol), SCHEDULE,
+                                      list(resident_plan(h, w)))
     flow_level.launches += 1
     return out
 

@@ -21,8 +21,11 @@ summed by
 group (K1 flow_level, K2 component_extents, K3 nms, K4 sor_solve, K5
 warp_bilinear, K6 label_components, the IRLS coefficients
 irls_coefficients, convolutions and matrix products, the rest), the launch
-counts, the top kernels, the kernel names in each named group, and the
-device's busy share: profiled kernel time over the unprofiled request time.
+counts, the top kernels, the kernel names in each named group, the
+program's counts of the profiled request (``utils/profiling.COUNTS``: the
+frame pairs the flow solved, and its levels whose SOR ran resident or
+tiled), and the device's busy share: profiled kernel time over the
+unprofiled request time.
 A port kernel's group is the ``kernel::<wrapper>`` span (utils/profiling
 .span) that its wrapper opens around the launch; a device operation under no
 such span is grouped by its name. Raises without CUDA, and when a kernel of
@@ -52,6 +55,7 @@ from .ops.sor_solve import sor_solve
 from .ops.warp import warp_bilinear
 from .pipeline.online import DensePoseOnlineDetector, flow_params_from_cfg
 from .utils.cuda import resolve_device
+from .utils import profiling
 from .utils.profiling import StageTimer
 from .utils.synthetic import coherent_motion_frames
 
@@ -182,9 +186,11 @@ def main(argv=None) -> int:
         p.timer = None
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = profiling.COUNTS.copy()
     with torch.profiler.profile(activities=acts) as prof:
         pred.predict_frames(rgb, depth)
         torch.cuda.synchronize()
+    counts = dict(profiling.COUNTS - before)
     kernels = summary(prof)
     groups = kernels["groups"]
     required = FLOW_GROUPS[args.flow] + ("component_extents",)
@@ -209,6 +215,7 @@ def main(argv=None) -> int:
         "device_kernel_ms": round(device_ms, 3),
         "device_busy_share": (round(device_ms / 1e3 / wall, 4) if device_ms
                               else "not measured"),
+        "counts": counts,
         **kernels,
     }, indent=1))
     return 0

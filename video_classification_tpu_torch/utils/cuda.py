@@ -34,9 +34,11 @@ SOURCES = ("bindings.cpp", "flow_level.cu", "component_extents.cu", "nms.cu",
            "sor_solve.cu", "warp.cu", "label_components.cu", "irls.cu")
 # Headers the .cu files include (sor_solve.cu and flow_level.cu share the
 # SOR tiles, component_extents.cu and label_components.cu the cluster
-# strips). ``load`` hashes only the sources, so ``cuda_flags`` carries a
-# digest of the headers: editing one changes the flags and rebuilds.
-HEADERS = ("sor_tiles.cuh", "cluster_strips.cuh")
+# strips, flow_level.cu alone the resident SOR, which takes the cluster
+# strips' exchange). ``load`` hashes only the sources, so ``cuda_flags``
+# carries a digest of the headers: editing one changes the flags and
+# rebuilds.
+HEADERS = ("sor_tiles.cuh", "cluster_strips.cuh", "sor_resident.cuh")
 # -fmad=false stops nvcc from contracting a multiply and an add on its own, so
 # a kernel performs the same float32 operations, in the same order, as its
 # plain PyTorch twin: the fused multiply-adds are written out as __fmaf_rn
@@ -105,8 +107,9 @@ def build():
     """The kernel extension (one function per ``.cu`` file of ``SOURCES``:
     ``flow_level``, ``component_extents``, ``nms``, ``sor_solve``,
     ``warp_bilinear``, ``label_components``, ``irls_coefficients``; and
-    ``component_extents_route``, ``label_components_route`` and
-    ``nms_route``), compiled at first use. Raises with the
+    ``component_extents_route``, ``label_components_route``,
+    ``nms_route``, ``flow_level_tiled``, ``flow_level_resident_plan`` and
+    ``flow_level_active_clusters``), compiled at first use. Raises with the
     compiler's output if the build fails."""
     global _ext
     with _lock:
