@@ -7,8 +7,8 @@
 cell's own load; the check as in every run); ``control`` puts the reference
 in the program's place one precision down (the networks in fp8,
 ``reference.precision.FP8``; the flow held in bfloat16, ``reference.flow
-.BF16``; the fusion in bfloat16); a fault name (``harness/faults.py``)
-plants that fault in the program. Prints
+.BF16``; the fusion in bfloat16); a fault name (the cell's model plug-in's
+``FAULTS`` of the mix's kind) plants that fault in the program. Prints
 one JSON line per seed with the numbers compared, then one with each
 number's largest and smallest reading. Needs a CUDA device.
 """
@@ -23,9 +23,24 @@ import time
 
 import torch
 
-from .harness import faults
 from .harness.core import execute, power_limit
 from .harness.registry import Registry
+
+
+def plant(registry: Registry, workload: str, mode: str):
+    """``execute``'s (mode, fault) for ``--mode``: ``program`` and
+    ``control`` as they are, a fault of the cell's model plug-in for the
+    mix's kind planted in the program; any other name raises, naming the
+    faults there are."""
+    if mode in ("program", "control"):
+        return mode, None
+    w = registry.workload(workload)
+    kind = registry.traffic(w["traffic"])["kind"]
+    faults = getattr(registry.model_of(w["config"]), "FAULTS", {}).get(kind, {})
+    if mode not in faults:
+        raise ValueError(f"no fault {mode!r} for {workload} (kind {kind!r}); its model's "
+                         f"faults are {sorted(faults)}, or give 'program' or 'control'")
+    return "program", faults[mode]
 
 
 def main(argv=None) -> int:
@@ -35,12 +50,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="program")
     ap.add_argument("--seconds", type=float, default=5.0)
     args = ap.parse_args(argv)
+    registry = Registry()
+    mode, fault = plant(registry, args.workload, args.mode)
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
-    fault = {**faults.SERVE, **faults.TRAIN}.get(args.mode)
-    mode = "program" if fault is not None else args.mode
-    registry = Registry()
     readings = []
     print(json.dumps({"device": power_limit(), "workload": args.workload, "mode": args.mode}),
           flush=True)

@@ -1,7 +1,9 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
-``execute`` runs a cell on a device and returns the result's fields; the
-driver is the traffic mix's ``kind`` (``harness/serve.py``, ``harness/train.py``).
+``execute`` runs a cell on a device and returns the result's fields: the
+traffic mix's ``kind`` names the driver (``kinds/<kind>.py``), the
+configuration's ``model`` the plug-in the driver builds the program with
+(``models/<model>.py``).
 ``main`` is the command line: it refuses to run without the cards the cell
 asks for, prints the numbers compared beside their limits as the last lines
 of standard error, and the result as the last line of standard output.
@@ -17,6 +19,7 @@ import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -24,7 +27,6 @@ import torch
 from .registry import Registry
 
 OUT_DIR = Path(__file__).resolve().parent.parent / ".out"
-NO_ROOT = OUT_DIR / "no_root"   # never created: no checkpoint is found there
 
 
 @dataclass
@@ -57,6 +59,7 @@ class Context:
     registry: Registry
     workload: str
     config: Dict
+    model: ModuleType              # the configuration's model plug-in
     mix: Dict
     cell: Dict
     seed: int
@@ -73,43 +76,10 @@ class Context:
         """Note the seconds since the run started at the end of a set-up step."""
         self.marks[step] = round(time.perf_counter() - self.t_start, 3)
 
-    def overrides(self) -> List[str]:
-        opts = dict(self.config["opts"], **{"CHALEARN.ROOT": str(NO_ROOT),
-                                            "CUDA.SEED": int(self.seed)})
-        return [x for k, v in opts.items() for x in (k, str(v))]
-
     def memory_peak(self) -> int:
         if self.device.type == "cuda":
             return int(torch.cuda.max_memory_allocated(self.device))
         return 0
-
-
-def stream_seed(seed: int, index: int) -> int:
-    return (int(seed) * 31 + index + 7) % (2 ** 63)
-
-
-def stream_cfgs(ctx: Context, names):
-    from video_classification_tpu_torch.config import load_model_cfg
-
-    cfgs = [load_model_cfg(n, overrides=ctx.overrides()) for n in names]
-    for cfg in cfgs:
-        for key, want in ctx.config["opts"].items():
-            node = cfg
-            for part in key.split("."):
-                node = getattr(node, part) if not isinstance(node, dict) else node[part]
-            if str(node) != str(want):
-                raise ValueError(f"{key} reads {node!r}, the configuration states {want!r}")
-    return cfgs
-
-
-def _driver(kind: str):
-    if kind == "serve":
-        from . import serve
-        return serve.run
-    if kind == "train":
-        from . import train
-        return train.run
-    raise ValueError(f"unknown traffic kind {kind!r}")
 
 
 def execute(registry: Registry, workload: str, seed: int, seconds: float, trace: bool,
@@ -117,11 +87,13 @@ def execute(registry: Registry, workload: str, seed: int, seconds: float, trace:
             fault: Optional[Callable] = None) -> Dict:
     """The result's fields of one run, and the numbers compared."""
     w = registry.workload(workload)
-    ctx = Context(registry, workload, registry.config(w["config"]), registry.traffic(w["traffic"]),
-                  registry.cell(workload), int(seed), float(seconds), bool(trace),
+    mix = registry.traffic(w["traffic"])
+    driver = registry.kind(mix["kind"])
+    ctx = Context(registry, workload, registry.config(w["config"]), registry.model_of(w["config"]),
+                  mix, registry.cell(workload), int(seed), float(seconds), bool(trace),
                   torch.device(device), t_start, mode, fault)
     ctx.mark("imports")
-    rec = _driver(ctx.mix["kind"])(ctx)
+    rec = driver.run(ctx)
     rec.notes["setup_at"] = ctx.marks
     rec.peaks = _read_json(registry.package / "counts" / "peaks.json")
     metrics = {}

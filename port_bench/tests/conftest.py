@@ -12,7 +12,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 ROOT = PACKAGE.parent
 
 TINY_CONFIG = {
-    "name": "tiny", "source": "test", "streams": ["slowfast-LHand"],
+    "name": "tiny", "model": "slowfast_streams", "source": "test", "streams": ["slowfast-LHand"],
     "opts": {"CHALEARN.NUM_CLASS": 5, "CHALEARN.CLIP_LEN": 4, "CHALEARN.IMG_SAMPLE_INTERVAL": 5,
              "CHALEARN.BATCH_SIZE": 4, "MODEL.R3D_INPUT": "CropLHand", "MODEL.DEPTH": 18,
              "MODEL.LR": 0.0002, "CUDA.COMPUTE_DTYPE": "float32",
@@ -48,9 +48,10 @@ def pytest_configure(config):
 
 def write_tiny(dest: Path) -> Path:
     """A benchmark tree at ``dest`` (its package directory) with the tiny
-    cells, the real metric readers and counts; returns its BENCHMARK.json."""
+    cells, the real kinds, model plug-ins, metric readers and counts;
+    returns its BENCHMARK.json."""
     dest.mkdir(parents=True)
-    for sub in ("metrics", "counts"):
+    for sub in ("kinds", "models", "metrics", "counts"):
         shutil.copytree(PACKAGE / sub, dest / sub, ignore=shutil.ignore_patterns("__pycache__"))
     for sub, files in (("configs", {"tiny": TINY_CONFIG, "tiny2": TINY_ENSEMBLE}),
                        ("traffic", {"tiny_serve": TINY_SERVE, "tiny_train": TINY_TRAIN}),

@@ -26,8 +26,10 @@ def test_other_names_pass(name):
 
 def test_harness_and_port_load_no_jax():
     """Importing everything a run imports leaves no forbidden module."""
-    code = ("import port_bench.harness.core, port_bench.harness.serve, port_bench.harness.train,"
-            " port_bench.calibrate;"
+    code = ("import port_bench.harness.core, port_bench.calibrate;"
+            "from port_bench.harness.registry import Registry; r = Registry();"
+            "[r.kind(k) for k in ('serve', 'train')];"
+            "[r.model_of(w['config']) for w in r.benchmark['workloads']];"
             "import video_classification_tpu_torch.engine.predictor,"
             " video_classification_tpu_torch.engine.trainer;"
             "from port_bench.harness.guard import forbidden_modules;"

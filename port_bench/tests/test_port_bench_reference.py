@@ -5,10 +5,12 @@ reference."""
 import pytest
 import torch
 
-from port_bench.harness.weights import stream_state_dict
+from port_bench.harness.registry import Registry
+from port_bench.harness.traffic import coherent_motion_frames
 from port_bench.reference import flow, serve
 from port_bench.reference.slowfast import SlowFast, pathways
-from port_bench.harness.traffic import coherent_motion_frames
+
+stream_state_dict = Registry().model("slowfast_streams").stream_state_dict
 
 
 def _frames(t=6, h=48, w=64, seed=3):

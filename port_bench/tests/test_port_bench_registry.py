@@ -24,11 +24,20 @@ def test_cell_pieces_found_by_name(workload):
     w = r.workload(workload)
     config, mix, cell = r.config(w["config"]), r.traffic(w["traffic"]), r.cell(workload)
     assert config["name"] == w["config"] and config["streams"]
-    assert mix["kind"] in ("serve", "train")
+    assert callable(r.kind(mix["kind"]).run)
+    assert callable(getattr(r.model_of(w["config"]), mix["kind"]))
     assert cell["limits"]
     names = [m["name"] for m in r.metrics(workload, False)]
     assert "setup_s" in names and len(names) >= 2
     assert r.metrics(workload, True)
+
+
+def test_a_plug_in_is_loaded_once():
+    """Every lookup of one file gives one module, so that a plug-in's module
+    state is not split between copies."""
+    assert Registry().model("slowfast_streams") is Registry().model_of("slowfast-HTAH")
+    assert Registry().kind("serve") is Registry().kind("serve")
+    assert Registry().reader("setup_s") is Registry().reader("setup_s")
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in bench()["end_to_end"] + bench()["per_layer"]])
@@ -67,7 +76,7 @@ def test_new_cell_added_by_files_alone(tmp_path):
     """A copy of the benchmark's data with one more cell (its cell file and
     its BENCHMARK.json entry) lists and loads it through the same code."""
     pkg = tmp_path / "port_bench"
-    for sub in ("configs", "traffic", "cells", "metrics", "counts"):
+    for sub in ("configs", "traffic", "cells", "kinds", "models", "metrics", "counts"):
         shutil.copytree(PACKAGE / sub, pkg / sub, ignore=shutil.ignore_patterns("__pycache__"))
     b = bench()
     (pkg / "traffic" / "v130.json").write_text(

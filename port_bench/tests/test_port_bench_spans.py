@@ -121,14 +121,13 @@ def test_readers_refuse_another_runs_trace(tmp_path, monkeypatch):
 @pytest.mark.parametrize("workload", ["tiny.serve", "tiny.train"])
 def test_traced_tiny_run_reads_the_programs_spans(tiny_registry, workload, monkeypatch,
                                                    tmp_path):
-    from port_bench.harness import serve, trace, train
+    from port_bench.harness import trace
     from video_classification_tpu_torch.utils import profiling
 
     monkeypatch.setattr(profiling, "COUNTS", Counter())
     # The trace in a directory of this test's own, away from other runs'.
-    for driver in (serve, train):
-        monkeypatch.setattr(driver, "traced",
-                            lambda fn, _out, device: trace.traced(fn, tmp_path, device))
+    traced = trace.traced
+    monkeypatch.setattr(trace, "traced", lambda fn, _out, device: traced(fn, tmp_path, device))
     monkeypatch.setattr(spans, "TRACE", tmp_path / "trace.json")
     out = execute(tiny_registry, workload, 2**31 + 17, 0.5, True, "cpu", time.perf_counter())
     metrics = out["result"]["metrics"]
