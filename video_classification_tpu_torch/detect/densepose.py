@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..models.layers import (BatchNorm, Conv2d, ConvTranspose2d, GroupNorm,
                              Linear, conv2d)
 from ..models.resnet2d import Bottleneck2d
+from ..utils.profiling import span
 from .ops import (apply_deltas, clip_boxes, multilevel_roi_align, nms,
                   roi_align, top_k)
 
@@ -318,17 +319,41 @@ class DensePoseRCNN(nn.Module):
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images: (B, 3, H, W) float32, BGR, mean-subtracted. Returns
         boxes (B, D, 4), scores (B, D), valid (B, D), and charts (int32,
-        0..24), u, v (B, K, hm, hm) for the first K detections."""
-        b, _, h, w = images.shape
-        dev = images.device
-        # Pad bottom-right to the backbone's size divisibility (64 with P6),
-        # as detectron2's ImageList does; boxes clip to the true (h, w).
-        x = F.pad(images, (0, -w % 64, 0, -h % 64)).to(self.compute_dtype)
-        feats = self.backbone(x)  # [P2..P6]
+        0..24), u, v (B, K, hm, hm) for the first K detections.
 
-        # RPN: score anchors, top-k per level, decode, one NMS over
-        # level-offset boxes (detectron2 batched_nms: disjoint coordinate
-        # ranges keep levels apart).
+        Its four parts open the spans ``stage::detect_backbone``,
+        ``stage::detect_rpn``, ``stage::detect_box`` and
+        ``stage::detect_chart`` (``utils/profiling.span``)."""
+        h, w = images.shape[-2:]
+        with span("stage::detect_backbone"):
+            # Pad bottom-right to the backbone's size divisibility (64 with
+            # P6), as detectron2's ImageList does; boxes clip to the true (h, w).
+            x = F.pad(images, (0, -w % 64, 0, -h % 64)).to(self.compute_dtype)
+            feats = self.backbone(x)  # [P2..P6]
+        with span("stage::detect_rpn"):
+            proposals, proposal_mask = self._proposals(feats, (h, w))
+        with span("stage::detect_box"):
+            final_boxes, final_scores, det_mask = self._detections(
+                feats, proposals, proposal_mask, (h, w))
+        with span("stage::detect_chart"):
+            charts, u, v = self._charts(feats, final_boxes)
+        return {
+            "boxes": final_boxes,
+            "scores": torch.where(det_mask, final_scores, 0.0),
+            "valid": det_mask,
+            "charts": charts,
+            "u": u,
+            "v": v,
+        }
+
+    def _proposals(self, feats, hw: Tuple[int, int]):
+        """RPN: score anchors, top-k per level, decode, one NMS over
+        level-offset boxes (detectron2 batched_nms: disjoint coordinate
+        ranges keep levels apart). Returns proposals (B, P, 4) and their
+        mask (B, P)."""
+        h, w = hw
+        b = feats[0].shape[0]
+        dev = feats[0].device
         boxes, scores, levels = [], [], []
         rpn_out = self.proposal_generator["rpn_head"](feats)
         for lvl, ((obj, deltas), stride, size) in enumerate(
@@ -350,10 +375,13 @@ class DensePoseRCNN(nn.Module):
         offset = torch.cat(levels)[:, None] * (float(max(h, w)) + 2.0)
         keep_idx, proposal_mask = nms(boxes + offset, scores,
                                       self.post_nms_topk, 0.7)
-        proposals = _rows(boxes, keep_idx)                        # (B, P, 4)
+        return _rows(boxes, keep_idx), proposal_mask
 
-        # Box head on multi-level ROIAlign over P2..P5.
-        p = proposals.shape[1]
+    def _detections(self, feats, proposals, proposal_mask, hw: Tuple[int, int]):
+        """Box head on multi-level ROIAlign over P2..P5, then the score
+        threshold and NMS. Returns boxes (B, D, 4), scores (B, D) and
+        valid (B, D), in keep (score-descending) order."""
+        b, p = proposals.shape[:2]
         rois = multilevel_roi_align(feats[:4], proposals, 7)
         cls_scores, box_deltas = self.roi_heads["box_predictor"](
             self.roi_heads["box_head"](rois.reshape(b * p, *rois.shape[2:])))
@@ -362,14 +390,17 @@ class DensePoseRCNN(nn.Module):
         person = torch.where(proposal_mask, person, 0.0)
         det_boxes = clip_boxes(apply_deltas(
             proposals, box_deltas.float().reshape(b, p, 4),
-            weights=BOX_DELTA_WEIGHTS), (h, w))
+            weights=BOX_DELTA_WEIGHTS), hw)
         person = torch.where(person > SCORE_THRESHOLD, person, 0.0)
         det_idx, det_mask = nms(det_boxes, person, self.max_detections, 0.5)
-        final_boxes = _rows(det_boxes, det_idx)
         final_scores = _rows(person, det_idx)
-        det_mask = det_mask & (final_scores > SCORE_THRESHOLD)
+        return (_rows(det_boxes, det_idx), final_scores,
+                det_mask & (final_scores > SCORE_THRESHOLD))
 
-        # DensePose branch on the first chart_topk (best) detections.
+    def _charts(self, feats, final_boxes):
+        """DensePose branch on the first chart_topk (best) detections:
+        charts (int32, 0..24), u, v (B, K, hm, hm)."""
+        b = final_boxes.shape[0]
         chart_boxes = final_boxes
         if self.chart_topk and self.chart_topk < final_boxes.shape[1]:
             chart_boxes = final_boxes[:, :self.chart_topk]
@@ -389,14 +420,7 @@ class DensePoseRCNN(nn.Module):
             t = torch.clamp(t.float().gather(1, sel)[:, 0], 0.0, 1.0)
             return t.reshape(b, k, hm, hm)
 
-        return {
-            "boxes": final_boxes,
-            "scores": torch.where(det_mask, final_scores, 0.0),
-            "valid": det_mask,
-            "charts": charts.to(torch.int32).reshape(b, k, hm, hm),
-            "u": chart_field(u),
-            "v": chart_field(v),
-        }
+        return charts.to(torch.int32).reshape(b, k, hm, hm), chart_field(u), chart_field(v)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

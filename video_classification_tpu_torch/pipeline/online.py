@@ -29,7 +29,7 @@ from ..ops.flow import FlowParams
 from ..ops.sampling import num_uniform_clips, random_clip_indices, uniform_clip_indices
 from ..utils.cuda import resolve_device
 from ..utils.labels import SETS, get_labels
-from ..utils.profiling import span, stage
+from ..utils.profiling import count, span, stage
 from .device_pipeline import Detections, preprocess_clip_on_device
 
 # detectron2 Base-RCNN-FPN pixel means of caffe2 (MSRA) backbones, BGR, unit
@@ -137,7 +137,9 @@ class DensePoseOnlineDetector:
 
     @torch.inference_mode()
     def __call__(self, padded_frames_bgr: torch.Tensor) -> Detections:
-        """(S, 2H, 2W, 3) uint8 padded frames -> detections on the device."""
+        """(S, 2H, 2W, 3) uint8 padded frames -> detections on the device;
+        counts the S frames under ``detect.frames`` (``utils/profiling.count``)."""
+        count("detect.frames", padded_frames_bgr.shape[0])
         x = (padded_frames_bgr.to(self.device).float() - self._mean).permute(0, 3, 1, 2)
         cols = []
         for start in range(0, x.shape[0], self.batch_size):

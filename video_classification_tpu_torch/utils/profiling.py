@@ -10,11 +10,17 @@ clock; with no session it is one shared no-op context, and costs a flag
 read. The names in use: ``serve::request`` (args: the predictor's request
 ordinal) and ``serve::stream`` (args: the stream's model name) in
 ``engine/predictor``; ``stage::<name>`` for the stages (``stage``, and
-``stage::upload`` and ``stage::fuse``); ``kernel::<wrapper>`` around each
-hand-written kernel's launch (or, on the CPU, its plain version);
-``data::wait`` in ``data/pipeline.prefetch_to_device``; ``train::<phase>``
-in ``engine/trainer``. The one count: ``flow.pairs``, the frame pairs
-``ops/flow.coarse2fine_flow`` solves."""
+``stage::upload`` and ``stage::fuse``), and inside ``stage::detect`` the
+DensePose detector's ``stage::detect_backbone|detect_rpn|detect_box|
+detect_chart`` (``detect/densepose.DensePoseRCNN.forward``);
+``kernel::<wrapper>`` around each hand-written kernel's launch (or, on the
+CPU, its plain version); ``data::wait`` in
+``data/pipeline.prefetch_to_device``; ``train::<phase>`` in
+``engine/trainer``. The counts: ``flow.pairs``, the frame pairs
+``ops/flow.coarse2fine_flow`` solves; ``flow.sor_resident_levels`` and
+``flow.sor_tiled_levels``, the fused levels by their SOR's schedule
+(``ops/flow_level``); ``detect.frames``, the frames
+``pipeline/online.DensePoseOnlineDetector`` detects."""
 
 from __future__ import annotations
 
